@@ -6,14 +6,26 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the final line:
 
   1. environment: torch / CUDA versions, the card, its power limit;
-  2. build: the CUDA kernels (nvcc, sm_90a) and the host C++ library;
+  2. build: the CUDA kernels (one nvcc per source, all at once, sm_90a)
+     and the host C++ library; beside it, the time of one nvcc command
+     over all the kernel sources, which the build does not use;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and on the main path's own inputs (the first
-     16 MB tile of the corpus): bit-identical, with CUDA-event times;
-  4. the main path: a 64 MiB request through QzSession(device="cuda") at
-     the default gzip level-1 settings; every member decodes with stock
-     zlib, the session decodes the whole, and both kernels were launched;
-  5. the first 1 MiB through device="cpu" and device="cuda": same bytes;
+     main paths' shapes and on their own inputs (the first 16 MB tile of
+     the corpus): bit-identical, with CUDA-event times beside the plain
+     version's, one PyTorch library call's where there is one, and the
+     least time the card could take (bytes or operations over its peak);
+  4. the device time of the tokenizer layer on the full tiles, then the
+     three paths, each a 64 MiB request through QzSession(device="cuda")
+     with the launch counts set to 0 just before and read just after:
+     the dynamic and the static full-device pack (the engine's own
+     choice for dynamic and static sessions on the card) and the token
+     path (the engine held on it: the route a dynamic session takes on
+     the CPU, measured here against the device pack). Every member
+     decodes with stock zlib, the session decodes the whole, a second
+     compress gives the same bytes, and every kernel of the path was
+     launched. Then each path's breakdown and a profile of one compress;
+  5. the first 1 MiB through device="cpu" and device="cuda" on each
+     path, both engines held on it: same bytes;
   6. the kernel summary line, the card line, and {"ok": true, ...}.
 
 It imports neither jax nor the JAX package.
@@ -21,6 +33,7 @@ It imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import glob
 import importlib.util
 import json
 import os
@@ -28,6 +41,23 @@ import subprocess
 import sys
 import time
 import zlib
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside the tensor cores
+
+# (path, session static?, route on the card: None = the engine's own
+#  choice, False = the engine held on the token path; kernels it runs)
+PATHS = [
+    ("token", False, False, ("candidate_search", "parse_scan")),
+    ("static-device-pack", True, None,
+     ("candidate_search", "parse_scan", "assemble_windows")),
+    ("dynamic-device-pack", False, None,
+     ("candidate_search", "parse_scan", "symbol_histogram",
+      "huffman_lookup", "assemble_windows")),
+]
+# the path whose launches the kernel summary reports: the default
+# (dynamic) session on the card, which runs all five kernels
+MAIN_PATH = "dynamic-device-pack"
 
 
 def check(cond, msg: str) -> None:
@@ -57,6 +87,22 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(nbytes: float, ops: float):
+    """(least time in ms, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def max_err(got, want) -> int:
+    import torch
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    torch.cuda.synchronize()
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got, want))
+
+
 def gunzip_members(blob: bytes):
     """Stock zlib over concatenated gzip members (wbits 31)."""
     out, rest, members = [], blob, 0
@@ -78,12 +124,23 @@ def main() -> None:
     import qatzip_tpu_torch as qz
     from qatzip_tpu_torch import native
     from qatzip_tpu_torch.ops import _build, cuda_pack, lz77
-    from qatzip_tpu_torch.parallel.dispatch import TILE_B, _tok_knobs
+    from qatzip_tpu_torch.ops import deflate_pack as dp
+    from qatzip_tpu_torch.parallel import dispatch
+    from qatzip_tpu_torch.parallel.dispatch import TILE_B, _tok_knobs, plan_tile
     # by path: a package named "tests" installed elsewhere may shadow ours
     spec = importlib.util.spec_from_file_location("qz_corpus", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "tests", "corpus.py"))
     corpus = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(corpus)
+
+    own_route = dispatch.CudaEngine.packs_on_device
+
+    def set_route(device_pack) -> None:
+        """Hold every engine on the device pack (True) or the token path
+        (False); None gives the engines their own choice back."""
+        dispatch.CudaEngine.packs_on_device = (
+            own_route if device_pack is None
+            else lambda self, static: device_pack)
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -99,7 +156,21 @@ def main() -> None:
     t1 = time.perf_counter()
     native.get_lib()
     t2 = time.perf_counter()
-    print(f"build: kernels {t1 - t0:.2f} s, native {t2 - t1:.2f} s")
+    # the same kernels in one nvcc command, timed and thrown away
+    srcs = sorted(glob.glob(os.path.join(_build.CSRC_DIR, "*.cu")))
+    one = os.path.join(_build.BUILD_DIR, "one_command_build.so")
+    t3 = time.perf_counter()
+    subprocess.run([_build.find_nvcc(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", one, *srcs],
+                   check=True, capture_output=True)
+    one_s = time.perf_counter() - t3
+    os.remove(one)
+    print(f"build: kernels {t1 - t0:.2f} s ({len(srcs)} nvcc at once, then "
+          f"a link; built this run: "
+          f"{_build.BUILD_SECONDS['qztorch_kernels'] > 0}), native "
+          f"{t2 - t1:.2f} s; one nvcc over all {len(srcs)} kernel sources "
+          f"{one_s:.2f} s")
     for ln in _build.BUILD_LOGS.get("qztorch_kernels", "").splitlines():
         if "Used" in ln or "Compiling entry" in ln:
             print("build: ptxas", ln.strip())
@@ -111,6 +182,26 @@ def main() -> None:
     tile = torch.frombuffer(bytearray(data[:TILE_B * n]), dtype=torch.uint8)
     tile = tile.reshape(TILE_B, n).to(dev)
     lengths = torch.full((TILE_B,), n, dtype=torch.int32, device=dev)
+    res = {}       # kernel name -> its summary entry
+
+    def record(name, source, replaces, err, ms, plain_ms, library_ms,
+               nbytes, ops, shape):
+        """Check one kernel's comparison, print it, and keep it for the
+        summary (a later record of the same kernel replaces it)."""
+        b_ms, b_by = bound_ms(nbytes, ops)
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        res[name] = {
+            "name": name, "route": "cuda",
+            "source": f"qatzip_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+        lib_s = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"kernel {name} {shape}: identical, {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms "
+              f"({b_by})")
+
     key, ctx, pbits, unwindow = lz77._search_inputs(
         tile, lengths, n=n, min_match=4, window=32768, ctx_words=ctx_words,
         search_seg=ss, search_overlap=ov)
@@ -118,143 +209,285 @@ def main() -> None:
           f"unexpected k2 shapes {tuple(key.shape)} {tuple(ctx.shape)}")
     kw = dict(probes=probes, min_match=4, pbits=pbits)
     got = cuda_pack.candidate_search(key, ctx, **kw)
-    want = cuda_pack.candidate_search_ref(key, ctx, **kw)
-    torch.cuda.synchronize()
-    k2_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    check(k2_err == 0, f"candidate_search differs from its plain version "
-          f"(max abs err {k2_err})")
-    k2_ms = event_ms(lambda: cuda_pack.candidate_search(key, ctx, **kw), 10)
-    k2_plain_ms = event_ms(
-        lambda: cuda_pack.candidate_search_ref(key, ctx, **kw), 2)
+    err = max_err(got, cuda_pack.candidate_search_ref(key, ctx, **kw))
+    k2_pos = key.numel()
+    w = key.shape[1]
+    record("candidate_search", "candidate_search.cu",
+           "qatzip_tpu/ops/pallas_pack.py:242", err,
+           event_ms(lambda: cuda_pack.candidate_search(key, ctx, **kw), 10),
+           event_ms(lambda: cuda_pack.candidate_search_ref(key, ctx, **kw),
+                    2), None,
+           # key, ctx_words context words and the output, 4 bytes each;
+           # the bitonic sort's compare-exchanges
+           k2_pos * 4 * (2 + ctx_words),
+           key.shape[0] * (w // 2) * (w.bit_length() - 1)
+           * w.bit_length() // 2, tuple(key.shape))
     matched = float(((got >> 13) & 0x1F).gt(0).float().mean())
-    print(f"kernel candidate_search {tuple(key.shape)} ctx {ctx_words} "
-          f"probes {probes}: identical, {k2_ms:.3f} ms vs plain "
-          f"{k2_plain_ms:.3f} ms; positions with a candidate {matched:.3f}")
+    print(f"kernel candidate_search: ctx {ctx_words} probes {probes}; "
+          f"positions with a candidate {matched:.3f}")
 
     kv = unwindow(got)
-    is_match, ml, _dist, seg = lz77._parse_inputs(
+    is_match, ml_c, _dist, seg = lz77._parse_inputs(
         lengths, (kv >> 13) & 0x1F, (kv & 0x1FFF) + 1, n=n, min_match=4,
         max_match=258, ctx_bytes=4 * ctx_words, parse_seg=8192)
     lanes = TILE_B * (n // seg)
     check(lanes == 2048 and seg == 8192, f"unexpected parse lanes {lanes}")
-    got_p = cuda_pack.parse_scan(is_match, ml, seg)
-    want_p = cuda_pack.parse_scan_ref(is_match, ml, seg)
-    torch.cuda.synchronize()
-    ps_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                 for g, w in zip(got_p, want_p))
-    check(ps_err == 0, f"parse_scan differs from its plain version "
-          f"(max abs err {ps_err})")
-    ps_ms = event_ms(lambda: cuda_pack.parse_scan(is_match, ml, seg), 10)
-    ps_plain_ms = event_ms(lambda: cuda_pack.parse_scan_ref(is_match, ml, seg),
-                           1)
-    print(f"kernel parse_scan {lanes} lanes x {seg}: identical, "
-          f"{ps_ms:.3f} ms vs plain {ps_plain_ms:.3f} ms")
-    del key, ctx, got, want, kv, is_match, ml, got_p, want_p
+    err = max_err(cuda_pack.parse_scan(is_match, ml_c, seg),
+                  cuda_pack.parse_scan_ref(is_match, ml_c, seg))
+    record("parse_scan", "parse_scan.cu", "qatzip_tpu/ops/lz77.py:97", err,
+           event_ms(lambda: cuda_pack.parse_scan(is_match, ml_c, seg), 10),
+           event_ms(lambda: cuda_pack.parse_scan_ref(is_match, ml_c, seg), 1),
+           None, is_match.numel() * (1 + 4 + 2), is_match.numel() * 4,
+           (lanes, seg))
+    del key, ctx, got, kv, is_match, ml_c
 
-    # -- 4. the main path ----------------------------------------------------------
-    sess = qz.QzSession(device="cuda")
-    check(sess.setup_deflate() == qz.QZ_OK, "setup_deflate failed")
-    cuda_pack.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = sess.compress(data)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = dict(cuda_pack.LAUNCHES)
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-    plain, members = gunzip_members(out)
-    check(plain == data, "stock zlib does not give back the input")
-    check(members == -(-len(data) // (64 * 1024)),
-          f"{members} gzip members for {len(data)} bytes")
-    check(sess.decompress(out) == data, "session decompress differs")
-    t0 = time.perf_counter()
-    out2 = sess.compress(data)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    check(out2 == out, "a second compress gave other bytes")
-    zl1 = len(zlib.compress(data, 1))
-    ratio = len(data) / len(out)
+    # the device packers' planes of the same tile, at the level-1 knobs
+    ml, dist, taken, lit = dp._analyze_planes(
+        tile, lengths, n=n, parse_seg=8192, ctx_words=ctx_words,
+        probes=probes, search_seg=ss, search_overlap=ov)
 
+    def k1_phase(label, bits, nbits, off, group_w, max_words):
+        grp, wo = dp._group_pack(bits, nbits, off, group_w)
+        grp, wo = grp.contiguous(), wo.contiguous()
+        err = max_err(cuda_pack.assemble_windows(grp, wo, max_words=max_words),
+                      cuda_pack.assemble_windows_ref(grp, wo,
+                                                     max_words=max_words))
+        b_, ng, w_ = grp.shape
+        idx = (wo.to(torch.int64)[:, :, None]
+               + torch.arange(w_, device=dev)).reshape(b_, -1)
+        idx = torch.where(idx < max_words, idx, max_words)
+        vals = cuda_pack._u32(grp).reshape(b_, -1)
+        record("assemble_windows", "assemble_windows.cu",
+               "qatzip_tpu/ops/pallas_pack.py:342", err,
+               event_ms(lambda: cuda_pack.assemble_windows(
+                   grp, wo, max_words=max_words), 20),
+               event_ms(lambda: cuda_pack.assemble_windows_ref(
+                   grp, wo, max_words=max_words), 3),
+               event_ms(lambda: torch.zeros(
+                   (b_, max_words + 1), dtype=torch.int64,
+                   device=dev).scatter_add_(1, idx, vals), 10),
+               grp.numel() * 4 + wo.numel() * 4 + b_ * max_words * 4,
+               grp.numel(), f"{label} {tuple(grp.shape)} -> ({b_}, "
+               f"{max_words})")
+
+    bits, nbits = dp.static_emissions(tile, ml, dist, taken, lit)
+    off, _end = dp._offsets(nbits, dp.HDR_BITS)
+    mw_static = (n * 9 + dp.HDR_BITS + dp.EOB_BITS + 31) // 32 + 2
+    k1_phase("static", bits, nbits, off, dp.GROUP_W, mw_static)
+    del bits, nbits, off
+
+    sym, dsym_m = dp.hist_symbols(tile, ml, dist, taken, lit)
+    hist = cuda_pack.symbol_histogram(sym, dsym_m)
+    err = max_err(hist, cuda_pack.symbol_histogram_ref(sym, dsym_m))
+    # the library call's input: row * (NBINS + 1) + value, each row's
+    # values that do not count in the row's own spare bin NBINS
+    row = torch.arange(TILE_B, device=dev)[:, None] * (cuda_pack.NBINS + 1)
+    flat = (row + torch.cat([sym, dsym_m], 1).clamp(
+        max=cuda_pack.NBINS)).reshape(-1)
+    check(torch.equal(torch.bincount(
+        flat, minlength=TILE_B * (cuda_pack.NBINS + 1)).reshape(
+            TILE_B, -1)[:, :cuda_pack.NBINS].to(torch.int32), hist),
+        "symbol_histogram: the library call counts otherwise")
+    record("symbol_histogram", "symbol_histogram.cu",
+           "qatzip_tpu/ops/pallas_pack.py:312", err,
+           event_ms(lambda: cuda_pack.symbol_histogram(sym, dsym_m), 20),
+           event_ms(lambda: cuda_pack.symbol_histogram_ref(sym, dsym_m), 3),
+           event_ms(lambda: torch.bincount(
+               flat, minlength=TILE_B * (cuda_pack.NBINS + 1)), 10),
+           sym.numel() * 8 + hist.numel() * 4, sym.numel() * 2,
+           tuple(sym.shape))
+    del sym, dsym_m, flat
+
+    packs, dpacks, _hdrs, hbits = plan_tile(hist.cpu().numpy(), TILE_B)
+    lit_pack = torch.from_numpy(packs.astype("int32")).to(dev)
+    dist_pack = torch.from_numpy(dpacks.astype("int32")).to(dev)
+    lsym, ldsym = dp.lookup_symbols(tile, ml, dist, taken, lit)
+    lpack, dpack = cuda_pack.huffman_lookup(lit_pack, dist_pack, lsym, ldsym)
+    err = max_err((lpack, dpack), cuda_pack.huffman_lookup_ref(
+        lit_pack, dist_pack, lsym, ldsym))
+    z = torch.zeros((TILE_B, 1), dtype=torch.int32, device=dev)
+    table = torch.cat([lit_pack, z, dist_pack, z], 1)
+    tidx = torch.cat([torch.where(lsym < 286, lsym, 286),
+                      torch.where(ldsym < 30, ldsym + 287, 317)],
+                     1).to(torch.int64)
+    record("huffman_lookup", "huffman_lookup.cu",
+           "qatzip_tpu/ops/pallas_pack.py:86", err,
+           event_ms(lambda: cuda_pack.huffman_lookup(
+               lit_pack, dist_pack, lsym, ldsym), 20),
+           event_ms(lambda: cuda_pack.huffman_lookup_ref(
+               lit_pack, dist_pack, lsym, ldsym), 3),
+           event_ms(lambda: torch.gather(table, 1, tidx), 10),
+           lsym.numel() * 16 + TILE_B * 316 * 4, lsym.numel() * 2,
+           tuple(lsym.shape))
+    del lsym, ldsym, table, tidx
+
+    bits, nbits = dp.dynamic_emissions(ml, dist, taken, lit, lpack, dpack)
+    off, _end = dp._offsets(
+        nbits, torch.from_numpy(hbits).to(dev).to(torch.int64)[:, None])
+    mw_dyn = (n * dp.DYN_LIMIT + 4096 + 31) // 32 + 2
+    # the summary keeps this, the wider of the two k1 comparisons
+    k1_phase("dynamic", bits, nbits, off, dp.DYN_GROUP_W, mw_dyn)
+    del bits, nbits, off, lpack, dpack, ml, dist, taken, lit, hist
+    torch.cuda.empty_cache()
+
+    # -- 4. the tokenizer layer, then the three paths ---------------------------------
     full = len(data) // (TILE_B * n)           # full tiles only
 
-    def tokenize_tiles():
-        for t in range(full):
-            rows = torch.frombuffer(
-                bytearray(data[t * TILE_B * n:(t + 1) * TILE_B * n]),
-                dtype=torch.uint8).reshape(TILE_B, n)
-            lz77.lz77_tokenize(rows.to(dev), lengths, n=n, parse_seg=8192,
-                               search_seg=ss, search_overlap=ov,
-                               compact_seg=cs, ctx_words=ctx_words,
-                               probes=probes)
-    tok_ms = event_ms(tokenize_tiles, 2)
-    print(f"main path: {len(data)} bytes -> {len(out)} in {members} "
-          f"members, ratio {ratio:.4f}, vs zlib level 1 "
-          f"{zl1 / len(out):.4f}; compress cold {cold_s:.3f} s, warm "
-          f"{warm_s:.3f} s = {len(data) / warm_s / 1e9:.4f} GB/s; device "
-          f"tokenize (incl. h2d) of {full} full tiles {tok_ms:.1f} ms = "
-          f"{full * TILE_B * n / tok_ms / 1e6:.4f} GB/s; launches "
-          f"{launches}")
+    def over_tiles(tokenize):
+        def run():
+            for t in range(full):
+                rows = torch.frombuffer(
+                    bytearray(data[t * TILE_B * n:(t + 1) * TILE_B * n]),
+                    dtype=torch.uint8).reshape(TILE_B, n)
+                tokenize(rows.to(dev))
+        return run
+    tok_ms = event_ms(over_tiles(lambda rows: lz77.lz77_tokenize(
+        rows, lengths, n=n, parse_seg=8192, search_seg=ss,
+        search_overlap=ov, compact_seg=cs, ctx_words=ctx_words,
+        probes=probes)), 2)
+    ana_ms = event_ms(over_tiles(lambda rows: dp._analyze_planes(
+        rows, lengths, n=n, parse_seg=8192, ctx_words=ctx_words,
+        probes=probes, search_seg=ss, search_overlap=ov)), 2)
+    tiled = full * TILE_B * n
+    print(f"layer tokenize: device tokenize (incl. h2d) of {full} full "
+          f"tiles, CUDA events: lz77_tokenize (token path) {tok_ms:.1f} ms "
+          f"= {tiled / tok_ms / 1e6:.4f} GB/s; _analyze_planes (device "
+          f"packs) {ana_ms:.1f} ms = {tiled / ana_ms / 1e6:.4f} GB/s")
+    torch.cuda.empty_cache()
 
-    # -- 4b. where the time goes: the engine's two stages apart, then a
-    #        profile of one whole compress -----------------------------------
-    from torch.profiler import ProfilerActivity, profile
-    eng = sess._engine
+    zl1 = len(zlib.compress(data, 1))
     chunks = [data[o:o + n] for o in range(0, len(data), n)]
-    t0 = time.perf_counter()
-    tiles = list(eng._tokenize_tiles(chunks, n, 1))
-    tok_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng._pack(chunks, [True] * len(chunks), 0, tiles)
-    pack_s = time.perf_counter() - t0
-    fetched = sum(t[2].nbytes for t in tiles)
-    print(f"breakdown: stage + tokenize + fetch {tok_s:.3f} s "
-          f"({fetched} token bytes fetched), host pack alone "
-          f"{pack_s:.3f} s on {os.cpu_count()} cpus")
-    del tiles
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile
+    launches_by_path = {}
+    for name, static, route, kernels in PATHS:
+        set_route(route)
+        p = qz.SessionParamsDeflate()
+        if static:
+            p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
+        sess = qz.QzSession(device="cuda")
+        check(sess.setup_deflate(p) == qz.QZ_OK, "setup_deflate failed")
+        cuda_pack.reset_launch_counts()
         t0 = time.perf_counter()
-        sess.compress(data)
+        out = sess.compress(data)
         torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    # device-side events only (kernels, copies): the host ops that
-    # launched them carry the same time again
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in evs)
-    print(f"profile: one compress {prof_s:.3f} s under the profiler, device "
-          f"busy {dev_us / 1e3:.2f} ms = {dev_us / 1e4 / prof_s:.2f} % of it")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{100 * e.self_device_time_total / max(dev_us, 1):5.1f} % "
-              f"x{e.count:<5d} {e.key[:90]}")
+        cold_s = time.perf_counter() - t0
+        launches = dict(cuda_pack.LAUNCHES)
+        launches_by_path[name] = launches
+        check(all(launches[k] > 0 for k in kernels),
+              f"{name}: a kernel of the path never launched: {launches}")
+        plain, members = gunzip_members(out)
+        check(plain == data, f"{name}: stock zlib does not give back the "
+              "input")
+        check(members == len(chunks),
+              f"{name}: {members} gzip members for {len(data)} bytes")
+        check(sess.decompress(out) == data, f"{name}: session decompress "
+              "differs")
+        t0 = time.perf_counter()
+        out2 = sess.compress(data)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        check(out2 == out, f"{name}: a second compress gave other bytes")
+        print(f"path {name}: {len(data)} bytes -> {len(out)} in {members} "
+              f"members, ratio {len(data) / len(out):.4f}, vs zlib level 1 "
+              f"{zl1 / len(out):.4f}; compress cold {cold_s:.3f} s = "
+              f"{len(data) / cold_s / 1e9:.4f} GB/s, warm {warm_s:.3f} s = "
+              f"{len(data) / warm_s / 1e9:.4f} GB/s; launches {launches}")
+
+        # breakdown: the engine's stages apart
+        eng = sess._engine
+        finals = [True] * len(chunks)
+        if name == "token":
+            t0 = time.perf_counter()
+            tiles = list(eng._tokenize_tiles(chunks, n, 1))
+            dev_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eng._pack(chunks, finals, 0, tiles)
+            host_s = time.perf_counter() - t0
+            fetched = sum(t[2].nbytes for t in tiles)
+            print(f"breakdown {name}: stage + tokenize + fetch {dev_s:.3f} s "
+                  f"({fetched} token bytes fetched), host pack alone "
+                  f"{host_s:.3f} s on {os.cpu_count()} cpus")
+            del tiles
+        else:
+            dynamic = not static
+            torch.cuda.synchronize()
+            # time every host tree build of the run where it happens
+            plan_s = [0.0]
+
+            def timed_plan(*args):
+                t0 = time.perf_counter()
+                out = real_plan(*args)
+                plan_s[0] += time.perf_counter() - t0
+                return out
+            real_plan, dispatch.plan_tile = dispatch.plan_tile, timed_plan
+            try:
+                t0 = time.perf_counter()
+                items = eng._device_pack(chunks, n, 1, dynamic)
+                torch.cuda.synchronize()
+                dev_s = time.perf_counter() - t0
+            finally:
+                dispatch.plan_tile = real_plan
+            t0 = time.perf_counter()
+            fetched = list(eng._fetch_words(items))
+            fetch_s = time.perf_counter() - t0
+            nfetch = sum(f[2].nbytes + f[3].nbytes for f in fetched)
+            t0 = time.perf_counter()
+            eng._finish(chunks, finals, fetched)
+            host_s = time.perf_counter() - t0
+            del items, fetched
+            print(f"breakdown {name}: stage + device pack (dyn_plan "
+                  f"included) {dev_s:.3f} s, d2h fetch {fetch_s:.3f} s "
+                  f"({nfetch} bytes fetched), host finish {host_s:.3f} s on "
+                  f"{os.cpu_count()} cpus, dyn_plan {plan_s[0]:.3f} s")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sess.compress(data)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        # device-side events only (kernels, copies): the host ops that
+        # launched them carry the same time again
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in evs)
+        print(f"profile {name}: one compress {prof_s:.3f} s under the "
+              f"profiler, device busy {dev_us / 1e3:.2f} ms = "
+              f"{dev_us / 1e4 / prof_s:.2f} % of it")
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"profile {name}:   {e.self_device_time_total / 1e3:9.3f} "
+                  f"ms {100 * e.self_device_time_total / max(dev_us, 1):5.1f}"
+                  f" % x{e.count:<5d} {e.key[:80]}")
+        torch.cuda.empty_cache()
 
     # -- 5. CPU and CUDA agree ---------------------------------------------------
     head = data[:1 << 20]
-    cpu_sess = qz.QzSession(device="cpu")
-    cpu_sess.setup_deflate()
-    t0 = time.perf_counter()
-    cpu_out = cpu_sess.compress(head)
-    cpu_s = time.perf_counter() - t0
-    check(cpu_out == sess.compress(head), "device='cpu' and device='cuda' "
-          "give other bytes for the first 1 MiB")
-    print(f"cpu-vs-cuda: first 1 MiB identical ({len(cpu_out)} bytes; "
-          f"plain versions on the host took {cpu_s:.2f} s)")
+    for name, static, _route, _k in PATHS:
+        # both engines held on the path (the CPU engine's own choice for a
+        # dynamic session is the token path)
+        set_route(name != "token")
+        p = qz.SessionParamsDeflate()
+        if static:
+            p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
+        outs = []
+        for device in ("cpu", "cuda"):
+            s = qz.QzSession(device=device)
+            s.setup_deflate(p)
+            t0 = time.perf_counter()
+            outs.append(s.compress(head))
+            if device == "cpu":
+                cpu_s = time.perf_counter() - t0
+        check(outs[0] == outs[1], f"{name}: device='cpu' and device='cuda' "
+              "give other bytes for the first 1 MiB")
+        print(f"cpu-vs-cuda {name}: first 1 MiB identical ({len(outs[0])} "
+              f"bytes; plain versions on the host took {cpu_s:.3f} s)")
+    set_route(None)
 
     # -- 6. summary -----------------------------------------------------------------
-    kernels = [
-        {"name": "candidate_search", "route": "cuda",
-         "source": "qatzip_tpu_torch/csrc/candidate_search.cu",
-         "replaces": "qatzip_tpu/ops/pallas_pack.py:242",
-         "launches": launches["candidate_search"], "max_abs_err": k2_err,
-         "ms": round(k2_ms, 4), "plain_ms": round(k2_plain_ms, 4)},
-        {"name": "parse_scan", "route": "cuda",
-         "source": "qatzip_tpu_torch/csrc/parse_scan.cu",
-         "replaces": "qatzip_tpu/ops/lz77.py:97",
-         "launches": launches["parse_scan"], "max_abs_err": ps_err,
-         "ms": round(ps_ms, 4), "plain_ms": round(ps_plain_ms, 4)},
-    ]
-    print(json.dumps({"kernels": kernels}))
+    for name, entry in res.items():
+        entry["launches"] = launches_by_path[MAIN_PATH][name]
+        entry["launches_by_path"] = {p: launches_by_path[p][name]
+                                     for p, *_ in PATHS}
+    print(json.dumps({"kernels": list(res.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,7 @@ _SRC = os.path.join(REPO_DIR, "csrc", "qztpu_native.cpp")
 _SHIM = os.path.join(CSRC_DIR, "zstd_shim")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+_u16p = ctypes.POINTER(ctypes.c_uint16)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
@@ -66,6 +67,9 @@ class NativeLib:
         L.qz_lz77_host.restype = ctypes.c_int64
         L.qz_lz77_host.argtypes = [_u8p, ctypes.c_int64, _u32p,
                                    ctypes.c_int64, ctypes.c_int32]
+        L.qz_dyn_plan.restype = ctypes.c_int64
+        L.qz_dyn_plan.argtypes = [_u32p, _u32p, ctypes.c_int32, _u16p,
+                                  _u16p, _u8p, ctypes.c_int64]
 
     @staticmethod
     def _threads() -> int:
@@ -109,6 +113,30 @@ class NativeLib:
         if r < 0:
             raise RuntimeError("lz77_host token overflow")
         return toks[:int(r)]
+
+    def dyn_plan(self, lfreq: np.ndarray, dfreq: np.ndarray,
+                 limit: int = 12):
+        """One chunk's dynamic-Huffman plan from its (286,) lit/len and
+        (30,) distance histograms (the caller counts the EOB in
+        lfreq[256]): both trees optimal and length-limited to ``limit``.
+
+        Returns (lit_pack (286,) u16 = revcode | len << 12, dist_pack
+        (30,) u16, header bytes, header bits)."""
+        lf = np.ascontiguousarray(lfreq, np.uint32)
+        df = np.ascontiguousarray(dfreq, np.uint32)
+        if lf.shape != (286,) or df.shape != (30,):
+            raise ValueError("dyn_plan expects (286,) lit/len and (30,) "
+                             "distance histograms")
+        lit_pack = np.empty(286, np.uint16)
+        dist_pack = np.empty(30, np.uint16)
+        hdr = np.zeros(512, np.uint8)
+        r = self._lib.qz_dyn_plan(_ptr(lf, _u32p), _ptr(df, _u32p), limit,
+                                  _ptr(lit_pack, _u16p),
+                                  _ptr(dist_pack, _u16p), _ptr(hdr),
+                                  len(hdr))
+        if r < 0:
+            raise RuntimeError("dyn_plan failed")
+        return lit_pack, dist_pack, hdr[:(int(r) + 7) // 8].tobytes(), int(r)
 
     def deflate_compress_batch(self, chunks, finals, chain: int = 4,
                                mode: int = 0):
@@ -204,8 +232,10 @@ def library_path() -> str:
     return build_library(
         "qztorch_native", [_SRC],
         [os.path.join(_SHIM, f) for f in sorted(os.listdir(_SHIM))],
-        lambda out: ["g++", "-O3", "-fPIC", "-std=c++17", "-march=native",
-                     "-shared", "-I", _SHIM, "-o", out, _SRC],
+        lambda src, obj: ["g++", "-O3", "-fPIC", "-std=c++17",
+                          "-march=native", "-I", _SHIM, "-c", "-o", obj,
+                          src],
+        lambda out, objs: ["g++", "-shared", "-o", out, *objs],
         tag=_cpu_model())
 
 

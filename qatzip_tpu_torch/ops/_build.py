@@ -1,10 +1,11 @@
 """Build the port's native libraries at first use.
 
-Two libraries, both plain C ABIs loaded with ctypes:
+Two libraries, both plain C ABIs loaded with ctypes, each built the same
+way: one compiler process per source, all started together, then a link:
 
   * the CUDA kernels (``qatzip_tpu_torch/csrc/*.cu``), compiled by
-    ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` — pointers
-    and the stream cross as ``c_void_p``;
+    ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c`` — pointers and
+    the stream cross as ``c_void_p``;
   * the port's own copy of the host C++ runtime (``csrc/qztpu_native.cpp``),
     compiled by ``g++`` (see ``native.py``).
 
@@ -38,18 +39,36 @@ BUILD_SECONDS: dict = {}
 BUILD_LOGS: dict = {}
 
 
+def _run_all(cmds: Sequence[List[str]]) -> str:
+    """Run the commands at once; return their joined output, or raise
+    with it when one of them failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"build command failed:\n{log}")
+    return log
+
+
 def build_library(name: str, sources: Sequence[str], deps: Sequence[str],
-                  argv: Callable[[str], List[str]], tag: str = "") -> str:
+                  compile_one: Callable[[str, str], List[str]],
+                  link: Callable[[str, Sequence[str]], List[str]],
+                  tag: str = "") -> str:
     """Build (or find) ``name`` and return the path of the shared library.
 
-    ``argv(out_path)`` gives the compiler command; ``deps`` are further
+    ``compile_one(src, obj)`` gives the command that compiles one source
+    to an object, every source's command started at once; ``link(out,
+    objs)`` the command that links the objects. ``deps`` are further
     files (headers) whose contents, and ``tag``, select the output's
     name."""
     h = hashlib.sha256(tag.encode())
     for path in list(sources) + list(deps):
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update("\0".join(argv("OUT")).encode())
+    for cmd in (compile_one("SRC", "OBJ"), link("OUT", ["OBJ"])):
+        h.update("\0".join(cmd).encode())
     out = os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         BUILD_SECONDS.setdefault(name, 0.0)
@@ -61,12 +80,19 @@ def build_library(name: str, sources: Sequence[str], deps: Sequence[str],
             BUILD_SECONDS.setdefault(name, 0.0)
             return out
         tmp = f"{out}.tmp{os.getpid()}"
+        objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
         t0 = time.perf_counter()
-        res = subprocess.run(argv(tmp), capture_output=True, text=True)
+        try:
+            log = _run_all([compile_one(s, o) for s, o in zip(sources, objs)])
+            log += _run_all([link(tmp, objs)])
+        except RuntimeError as e:
+            raise RuntimeError(f"building {name} failed: {e}") from None
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOGS[name] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"building {name} failed:\n{res.stderr}")
+        BUILD_LOGS[name] = log
         os.replace(tmp, out)
         for old in glob.glob(os.path.join(BUILD_DIR, f"{name}_*.so")):
             if old != out:
@@ -86,8 +112,9 @@ def kernels_library() -> str:
     """Path of the CUDA kernel library, built for sm_90a if needed."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     nvcc = find_nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     return build_library(
         "qztorch_kernels", sources, [],
-        lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                     "-Xptxas", "-v", "-o", out, *sources])
+        lambda src, obj: [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler",
+                          "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src],
+        lambda out, objs: [nvcc, *arch, "-shared", "-o", out, *objs])

@@ -9,11 +9,14 @@ Counterpart of ``qatzip_tpu/ops/pallas_pack.py``. Each kernel has:
     wrapper runs for CPU tensors (and only for them) and which the chip
     check compares the kernel with.
 
-Kernels (sources in ``qatzip_tpu_torch/csrc/``):
+Kernels (sources in ``qatzip_tpu_torch/csrc/``), each bit-identical to
+what it replaces:
 
-  * ``candidate_search`` — the port of TPU kernel k2
-    (``pallas_pack.py::candidate_search``), bit-identical output;
-  * ``parse_scan`` — the greedy-parse recurrence ``lz77.py::_parse_scan``.
+  * ``candidate_search`` — TPU kernel k2 (``pallas_pack.py::candidate_search``);
+  * ``parse_scan`` — the greedy-parse recurrence ``lz77.py::_parse_scan``;
+  * ``assemble_windows`` — TPU kernel k1 (``pallas_pack.py::assemble_windows``);
+  * ``huffman_lookup`` — TPU kernel k3 (``pallas_pack.py::huffman_lookup``);
+  * ``symbol_histogram`` — TPU kernel k4 (``pallas_pack.py::symbol_histogram``).
 
 32-bit words cross the kernel interface as int32 tensors holding the
 uint32 bit pattern (torch has no full uint32 arithmetic). The plain
@@ -28,7 +31,8 @@ import threading
 
 import torch
 
-LAUNCHES = {"candidate_search": 0, "parse_scan": 0}
+LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "assemble_windows": 0,
+            "huffman_lookup": 0, "symbol_histogram": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -52,6 +56,14 @@ def kernels():
                                                 ci, ci, vp]
             lib.qz_parse_scan.restype = ci
             lib.qz_parse_scan.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            lib.qz_assemble_windows.restype = ci
+            lib.qz_assemble_windows.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                                vp]
+            lib.qz_huffman_lookup.restype = ci
+            lib.qz_huffman_lookup.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                              vp]
+            lib.qz_symbol_histogram.restype = ci
+            lib.qz_symbol_histogram.argtypes = [vp, vp, vp, ci, ci, vp]
             lib.qz_cuda_error_string.restype = ctypes.c_char_p
             lib.qz_cuda_error_string.argtypes = [ci]
             _lib = lib
@@ -220,3 +232,184 @@ def parse_scan(is_match: torch.Tensor, ml: torch.Tensor, seg: int):
     _check("parse_scan", rc)
     LAUNCHES["parse_scan"] += 1
     return taken, lit
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32 values -> int32 with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their uint32 values in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# k1: window assembly
+# ---------------------------------------------------------------------------
+
+#: shared memory one CTA may opt in to on the H100 (227 KB)
+MAX_SMEM = 232448
+
+
+def assemble_windows_ref(grp: torch.Tensor, wo: torch.Tensor, *,
+                         max_words: int) -> torch.Tensor:
+    """Plain version of :func:`assemble_windows`: an int64 scatter-add
+    that drops words at or past ``max_words`` (the bits two windows give
+    one word are disjoint, so add equals OR)."""
+    b, ng, w = grp.shape
+    idx = wo.to(torch.int64)[:, :, None] + torch.arange(
+        w, dtype=torch.int64, device=grp.device)
+    keep = (idx >= 0) & (idx < max_words)
+    out = torch.zeros((b, max_words + 1), dtype=torch.int64,
+                      device=grp.device)
+    out.scatter_add_(1, torch.where(keep, idx, max_words).reshape(b, -1),
+                     torch.where(keep, _u32(grp), 0).reshape(b, -1))
+    return _as_i32(out[:, :max_words])
+
+
+def assemble_windows(grp: torch.Tensor, wo: torch.Tensor, *,
+                     max_words: int) -> torch.Tensor:
+    """Place group windows at word offsets, OR-combining overlaps.
+
+    Args:
+      grp: (B, ngroups, W) int32 window words (uint32 bit patterns).
+      wo:  (B, ngroups) int32 word offset of each window.
+      max_words: output words per row; window words at or past it are
+           dropped.
+    Returns:
+      (B, max_words) int32 bit patterns.
+    """
+    b, ng, w = grp.shape
+    if tuple(wo.shape) != (b, ng):
+        raise ValueError(f"wo shape {tuple(wo.shape)} != {(b, ng)}")
+    if max_words < 1:
+        raise ValueError(f"max_words {max_words} must be positive")
+    _require(grp, "grp", torch.int32, grp.device)
+    _require(wo, "wo", torch.int32, grp.device)
+    if grp.device.type == "cpu":
+        return assemble_windows_ref(grp, wo, max_words=max_words)
+    if grp.device.type != "cuda":
+        raise ValueError(f"unsupported device {grp.device}")
+    if max_words * 4 > MAX_SMEM:
+        raise ValueError(f"a row of {max_words} words does not fit the "
+                         f"{MAX_SMEM} bytes of shared memory of one CTA")
+    out = torch.empty((b, max_words), dtype=torch.int32, device=grp.device)
+    if b == 0:
+        return out
+    lib = kernels()
+    rc = lib.qz_assemble_windows(grp.data_ptr(), wo.data_ptr(),
+                                 out.data_ptr(), b, ng, w, max_words,
+                                 _stream())
+    _check("assemble_windows", rc)
+    LAUNCHES["assemble_windows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# k3: Huffman code lookup
+# ---------------------------------------------------------------------------
+
+def huffman_lookup_ref(lit_pack: torch.Tensor, dist_pack: torch.Tensor,
+                       sym: torch.Tensor, dsym: torch.Tensor):
+    """Plain version of :func:`huffman_lookup`: two gathers on the tables
+    padded with one zero entry, which every out-of-table symbol reads."""
+    b = sym.shape[0]
+    z = torch.zeros((b, 1), dtype=torch.int32, device=sym.device)
+    lit = torch.cat([lit_pack, z], dim=1)
+    dist = torch.cat([dist_pack, z], dim=1)
+    si = torch.where((sym >= 0) & (sym < 286), sym, 286).to(torch.int64)
+    di = torch.where((dsym >= 0) & (dsym < 30), dsym, 30).to(torch.int64)
+    return torch.gather(lit, 1, si), torch.gather(dist, 1, di)
+
+
+def huffman_lookup(lit_pack: torch.Tensor, dist_pack: torch.Tensor,
+                   sym: torch.Tensor, dsym: torch.Tensor):
+    """Resolve per-position codes against per-row Huffman tables.
+
+    Args:
+      lit_pack:  (B, 286) int32 packed lit/len codes (code | len << 12).
+      dist_pack: (B, 30) int32 packed distance codes.
+      sym:  (B, n) int32 lit/len symbol; outside [0, 286) reads 0 (286
+            marks a position that emits nothing).
+      dsym: (B, n) int32 distance symbol; outside [0, 30) reads 0.
+    Returns:
+      (lpack, dpack): (B, n) int32 table entries per position.
+    """
+    b, n = sym.shape
+    if tuple(dsym.shape) != (b, n):
+        raise ValueError(f"dsym shape {tuple(dsym.shape)} != {(b, n)}")
+    if tuple(lit_pack.shape) != (b, 286) or tuple(dist_pack.shape) != (b, 30):
+        raise ValueError("tables must be (B, 286) and (B, 30)")
+    for t, what in ((lit_pack, "lit_pack"), (dist_pack, "dist_pack"),
+                    (sym, "sym"), (dsym, "dsym")):
+        _require(t, what, torch.int32, sym.device)
+    if sym.device.type == "cpu":
+        return huffman_lookup_ref(lit_pack, dist_pack, sym, dsym)
+    if sym.device.type != "cuda":
+        raise ValueError(f"unsupported device {sym.device}")
+    lout = torch.empty_like(sym)
+    dout = torch.empty_like(sym)
+    if b == 0 or n == 0:
+        return lout, dout
+    lib = kernels()
+    rc = lib.qz_huffman_lookup(lit_pack.data_ptr(), dist_pack.data_ptr(),
+                               sym.data_ptr(), dsym.data_ptr(),
+                               lout.data_ptr(), dout.data_ptr(), b, n,
+                               _stream())
+    _check("huffman_lookup", rc)
+    LAUNCHES["huffman_lookup"] += 1
+    return lout, dout
+
+
+# ---------------------------------------------------------------------------
+# k4: symbol histogram
+# ---------------------------------------------------------------------------
+
+NBINS = 316       # lit/len symbols 0..285, then distance symbols 286..315
+DIST_LO = 284     # the TPU kernel counts dsym over its 32 bins 284..315
+
+
+def symbol_histogram_ref(sym: torch.Tensor, dsym: torch.Tensor):
+    """Plain version of :func:`symbol_histogram`: one bincount over
+    ``row * (NBINS + 1) + value``, each row's values that do not count
+    sent to the row's own spare bin NBINS."""
+    b = sym.shape[0]
+    row = torch.arange(b, dtype=torch.int64, device=sym.device)[:, None]
+    s_ok = (sym >= 0) & (sym < NBINS)
+    d_ok = (dsym >= DIST_LO) & (dsym < NBINS)
+    idx = row * (NBINS + 1) + torch.cat([torch.where(s_ok, sym, NBINS),
+                                         torch.where(d_ok, dsym, NBINS)], 1)
+    counts = torch.bincount(idx.reshape(-1), minlength=b * (NBINS + 1))
+    return counts.reshape(b, NBINS + 1)[:, :NBINS].to(torch.int32)
+
+
+def symbol_histogram(sym: torch.Tensor, dsym: torch.Tensor):
+    """Per-row histogram over the 316 deflate symbols.
+
+    Args:
+      sym:  (B, n) int32 lit/len symbol; counted in bin ``sym`` when in
+            [0, 316), else ignored.
+      dsym: (B, n) int32 distance symbol + 286; counted in bin ``dsym``
+            when in [284, 316), else ignored.
+    Returns:
+      (B, 316) int32 counts. Any n is taken.
+    """
+    b, n = sym.shape
+    if tuple(dsym.shape) != (b, n):
+        raise ValueError(f"dsym shape {tuple(dsym.shape)} != {(b, n)}")
+    _require(sym, "sym", torch.int32, sym.device)
+    _require(dsym, "dsym", torch.int32, sym.device)
+    if sym.device.type == "cpu":
+        return symbol_histogram_ref(sym, dsym)
+    if sym.device.type != "cuda":
+        raise ValueError(f"unsupported device {sym.device}")
+    hist = torch.zeros((b, NBINS), dtype=torch.int32, device=sym.device)
+    if b == 0 or n == 0:
+        return hist
+    lib = kernels()
+    rc = lib.qz_symbol_histogram(sym.data_ptr(), dsym.data_ptr(),
+                                 hist.data_ptr(), b, n, _stream())
+    _check("symbol_histogram", rc)
+    LAUNCHES["symbol_histogram"] += 1
+    return hist

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..constants import QZ_PARAMS, QzError
-from .cuda_pack import candidate_search, parse_scan
+from .cuda_pack import _as_i32, candidate_search, parse_scan
 
 HASH_MUL = 2654435761
 TOK_MATCH_BIT = -(1 << 31)          # bit 31 as an int32 bit pattern
@@ -65,11 +65,6 @@ def _hash(w4: torch.Tensor, hb: int) -> torch.Tensor:
     hi = w4 >> 16
     prod = (lo * HASH_MUL + (((hi * HASH_MUL) & 0xFFFF) << 16)) & 0xFFFFFFFF
     return prod >> (32 - hb)
-
-
-def _as_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding uint32 values -> int32 with the same bit pattern."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def _search_inputs(data: torch.Tensor, lengths: torch.Tensor, *, n: int,

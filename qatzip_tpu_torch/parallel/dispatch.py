@@ -1,18 +1,28 @@
-"""The device chunk engine: tokenize on the device, pack on the host.
+"""The device chunk engine: tokenize on the device, pack on the device or
+the host.
 
-Counterpart of ``qatzip_tpu/parallel/dispatch.py``, token path only, one
-device. The dispatch layer (codec.py) fans a request into ``hw_buff_sz``
-chunks; the engine stages them in tiles of up to TILE_B rows, tokenizes
-every tile on the device (ops/lz77.py, with its two CUDA kernels), then
-fetches each tile's token counts and the used token prefix, rounded to a
-bucket, and packs every chunk with the host C++ packer on the host pool.
-The device works on later tiles while the host packs earlier ones.
-Results return as (payload, crc32) per chunk in submission order.
+Counterpart of ``qatzip_tpu/parallel/dispatch.py`` on one device. The
+dispatch layer (codec.py) fans a request into ``hw_buff_sz`` chunks; the
+engine stages them in tiles of up to TILE_B rows and takes one of two
+paths, as ``CudaEngine.packs_on_device`` picks them:
 
-On ``device="cpu"`` the same code runs the kernels' plain versions.
+  * the full-device DEFLATE pack (every static session; dynamic sessions
+    on a CUDA device): the device tokenizes (ops/lz77.py) and also
+    entropy-packs (ops/deflate_pack.py, with the kernels of TPU kernels
+    k1, k3 and k4); the engine fetches final deflate words, rounded to a
+    bucket, and the host only frames them. Dynamic sessions take two
+    device passes around a host tree build per chunk
+    (``native.dyn_plan``), with one tile of lookahead;
+  * the token path (dynamic sessions on the CPU): the device tokenizes
+    every tile, the engine fetches each tile's token counts and the used
+    token prefix, rounded to a bucket, and the host C++ packer packs
+    every chunk on the host pool while the device works on later tiles.
 
-Not ported yet: the row split for chunks over 64 KiB, the device
-packers, the multi-tile scan grouping, the mesh and the device CRC.
+Results return as (payload, crc32) per chunk in submission order. On
+``device="cpu"`` the same code runs the kernels' plain versions.
+
+Not ported yet: the row split for chunks over 64 KiB, the multi-tile
+scan grouping, the mesh and the device CRC.
 """
 
 from __future__ import annotations
@@ -24,6 +34,9 @@ import numpy as np
 import torch
 
 from ..constants import QZ_NOT_SUPPORTED, QZ_PARAMS, QzError
+from ..ops.deflate_pack import (deflate_analyze_hist, deflate_pack_device,
+                                deflate_pack_dynamic, finish_stream,
+                                finish_stream_dynamic)
 from ..ops.lz77 import MAX_WINDOW, lz77_tokenize, merge_segment_tokens
 
 # chunks per device dispatch
@@ -118,10 +131,7 @@ class CudaEngine:
         the tokens come back as (b, nseg, k) segment prefixes plus (b,
         nseg) counts, joined by merge_segment_tokens in the pack stage."""
         ss, ov, cs, ctx, probes = _tok_knobs(level, n)
-        if ss == 0 and n > MAX_WINDOW:
-            raise QzError(QZ_PARAMS, f"level {level} needs the full-row "
-                          f"candidate search over {n}-byte rows, which "
-                          "qatzip_tpu_torch does not have yet")
+        _check_search(level, n, ss)
         kw = dict(parse_seg=min(8192, n), search_seg=ss, search_overlap=ov,
                   compact_seg=cs, ctx_words=ctx, probes=probes,
                   min_match=4, max_match=258, window=32768)
@@ -148,12 +158,24 @@ class CudaEngine:
                 sl = toks[:, :_fetch_bucket(int(ntok_np.max()), n)]
             yield start, nt, sl.cpu().numpy().view(np.uint32), ntok_np
 
+    def packs_on_device(self, huffman_static: bool) -> bool:
+        """Whether a session's chunks take the full-device pack.
+
+        Static sessions always do, as in the JAX package. Dynamic sessions
+        do on a CUDA device: there the host packer bounds the token path,
+        and on an H100 with 8 host cores the device pack compressed a 64
+        MiB request 1.3-1.9x as fast at the same ratio (chip_smoke.py's
+        "path" lines, PERF.md). On the CPU neither route won every run,
+        and the token path keeps the JAX package's default bytes."""
+        return huffman_static or self.device.type == "cuda"
+
     def compress_chunks(self, chunks: Sequence[bytes], *, level: int,
                         final_flags: Optional[Sequence[bool]] = None,
                         huffman_static: bool = False,
                         ) -> List[Tuple[bytes, int]]:
         """Compress each chunk to an independent raw deflate payload + its
-        crc32. Host packer mode 1 (static Huffman) for static sessions,
+        crc32, on the route ``packs_on_device`` picks. On the token path
+        the host packer runs mode 1 (static Huffman) for static sessions,
         mode 0 (best of stored/static/dynamic) otherwise."""
         if any(len(c) > DEV_MAX for c in chunks):
             raise QzError(QZ_NOT_SUPPORTED, "chunks over 64 KiB need the "
@@ -162,6 +184,9 @@ class CudaEngine:
         finals = (list(final_flags) if final_flags is not None
                   else [True] * len(chunks))
         n = _pow2_chunk_n(chunks)
+        if self.packs_on_device(huffman_static):
+            items = self._device_pack(chunks, n, level, not huffman_static)
+            return self._finish(chunks, finals, self._fetch_words(items))
         return self._pack(chunks, finals, 1 if huffman_static else 0,
                           self._tokenize_tiles(chunks, n, level))
 
@@ -188,6 +213,141 @@ class CudaEngine:
         futures = [pool.submit(pack_one, (start + i, toks[i], ntok[i]))
                    for start, nt, toks, ntok in tiles for i in range(nt)]
         return [f.result() for f in futures]
+
+    # -- the full-device DEFLATE pack ---------------------------------------
+
+    def _device_pack(self, chunks: Sequence[bytes], n: int, level: int,
+                     dynamic: bool):
+        """Dispatch every tile's device pack. Returns one (tile_start,
+        tile_len, words, nbits, hdrs, packs) per tile: device words and
+        bit counts, and for dynamic tiles each chunk's header bytes and
+        lit/len table (its EOB code). Dynamic tiles run pass 1 one tile
+        ahead of pass 2, so the host builds tile k's trees while the
+        device analyzes tile k + 1, and at most two tiles' planes are
+        held at a time."""
+        ss, ov, _cs, ctx, probes = _tok_knobs(level, n)
+        _check_search(level, n, ss)
+        pkw = dict(parse_seg=8192, search_seg=ss, search_overlap=ov,
+                   ctx_words=ctx, probes=probes)
+        items, ahead = [], None
+        for start in range(0, len(chunks), TILE_B):
+            tile = chunks[start:start + TILE_B]
+            data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
+            dd = torch.from_numpy(data).to(self.device)
+            ll = torch.from_numpy(lengths).to(self.device)
+            if not dynamic:
+                words, nbits = deflate_pack_device(dd, ll, n=n, **pkw)
+                items.append((start, len(tile), words, nbits, None, None))
+                continue
+            hist, *planes = deflate_analyze_hist(dd, ll, n=n, **pkw)
+            cur = (start, len(tile), dd, planes, _to_host(hist))
+            if ahead is not None:
+                items.append(self._dyn_pass2(n, *ahead))
+            ahead = cur
+        if ahead is not None:
+            items.append(self._dyn_pass2(n, *ahead))
+        return items
+
+    def _dyn_pass2(self, n, start, nt, dd, planes, hist):
+        """Dynamic pass 2 for one tile: wait for its histograms, build each
+        chunk's trees and header on the host, dispatch the pack."""
+        hist_np, ready = hist
+        if ready is not None:
+            ready.synchronize()
+        packs, dpacks, hdrs, hbits = plan_tile(hist_np.numpy(), nt)
+        words, nbits = deflate_pack_dynamic(
+            dd, *planes, torch.from_numpy(packs.astype(np.int32)).to(
+                self.device),
+            torch.from_numpy(dpacks.astype(np.int32)).to(self.device),
+            torch.from_numpy(hbits).to(self.device), n=n)
+        return start, nt, words, nbits, hdrs, packs
+
+    @staticmethod
+    def _fetch_words(items):
+        """Yield each tile with its words fetched: the prefix that covers
+        the longest row, rounded to a bucket (the dynamic nbits leaves out
+        the <= 15-bit EOB, hence the pad)."""
+        for start, nt, words, nbits, hdrs, packs in items:
+            nbits_np = nbits.cpu().numpy()
+            maxw = int(nbits_np.max() + 15 + 31) // 32 + 1
+            k = _fetch_bucket(maxw, words.shape[1])
+            words_np = words[:, :k].cpu().numpy().view(np.uint32)
+            yield start, nt, words_np, nbits_np, hdrs, packs
+
+    def _finish(self, chunks, finals, fetched):
+        """Frame every fetched row on the host pool, in submission order:
+        header and EOB for dynamic rows, BFINAL or the full-flush sync,
+        the stored-block guard, crc32."""
+        from .. import native
+        from ..engines import host_pool
+        lib = native.get_lib()
+
+        def finish_one(args):
+            gi, words_row, bits, hdr, eob_pack = args
+            chunk = chunks[gi]
+            if hdr is not None:
+                payload = finish_stream_dynamic(words_row, bits, hdr,
+                                                eob_pack, final=finals[gi])
+            else:
+                payload = finish_stream(words_row, bits, final=finals[gi])
+            # stored-block guard: never ship an expanded stream; repack
+            # the chunk as all-literal runs with the host packer's best
+            # of stored/static/dynamic
+            if len(payload) >= len(chunk) + 8 and chunk:
+                runs = [0x40000000 | min(16383, len(chunk) - o)
+                        for o in range(0, len(chunk), 16383)]
+                payload = lib.deflate_pack(chunk, np.asarray(runs, np.uint32),
+                                           len(runs), final=finals[gi],
+                                           mode=0)
+            return payload, lib.crc32(chunk)
+
+        pool = host_pool()
+        futures = [pool.submit(finish_one, (
+            start + i, words_np[i], int(nbits_np[i]),
+            hdrs[i] if hdrs is not None else None,
+            int(packs[i][256]) if packs is not None else 0))
+            for start, nt, words_np, nbits_np, hdrs, packs in fetched
+            for i in range(nt)]
+        return [f.result() for f in futures]
+
+
+def _check_search(level: int, n: int, ss: int) -> None:
+    if ss == 0 and n > MAX_WINDOW:
+        raise QzError(QZ_PARAMS, f"level {level} needs the full-row "
+                      f"candidate search over {n}-byte rows, which "
+                      "qatzip_tpu_torch does not have yet")
+
+
+def _to_host(t: torch.Tensor):
+    """Start copying ``t`` to the host: (host tensor, event to wait on
+    before reading it, or None when the copy is already done)."""
+    if t.device.type != "cuda":
+        return t.cpu(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def plan_tile(hist: np.ndarray, nt: int):
+    """Each of the first ``nt`` chunks' dynamic plan (``native.dyn_plan``)
+    from their (316,) histograms, the EOB counted. Returns (lit_pack (b,
+    286) u16, dist_pack (b, 30) u16, header bytes per row, header bits
+    (b,) int32); rows past ``nt`` keep empty tables."""
+    from .. import native
+    lib = native.get_lib()
+    b = hist.shape[0]
+    packs = np.zeros((b, 286), np.uint16)
+    dpacks = np.zeros((b, 30), np.uint16)
+    hdrs = [b""] * b
+    hbits = np.zeros(b, np.int32)
+    for i in range(nt):
+        lf = hist[i, :286].astype(np.uint32)
+        lf[256] += 1
+        packs[i], dpacks[i], hdrs[i], hbits[i] = lib.dyn_plan(
+            lf, hist[i, 286:].astype(np.uint32))
+    return packs, dpacks, hdrs, hbits
 
 
 def build_engine(device) -> CudaEngine:

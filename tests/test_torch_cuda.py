@@ -67,14 +67,98 @@ def test_wrapper_rejects_host_and_device_mix(card):
     with pytest.raises(ValueError):
         cuda_pack.candidate_search(key.to(card), ctx, probes=7, min_match=4,
                                    pbits=pbits)
+    lit = torch.zeros((1, 286), dtype=torch.int32)
+    dist = torch.zeros((1, 30), dtype=torch.int32)
+    sym = torch.zeros((1, 512), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cuda_pack.huffman_lookup(lit, dist.to(card), sym.to(card),
+                                 sym.to(card))
+    with pytest.raises(ValueError):
+        cuda_pack.symbol_histogram(sym.to(card), sym)
+    with pytest.raises(ValueError):
+        cuda_pack.assemble_windows(torch.zeros((1, 2, 74), dtype=torch.int32),
+                                   torch.zeros((1, 2), dtype=torch.int32).to(
+                                       card), max_words=100)
 
 
-@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
-def test_session_on_card_matches_cpu(card, static):
+def _k1_inputs(b, n, w, seed):
+    """Windows as the packers give them, one per 256 positions: window g
+    writes span[g] < w words and the next one starts at its last word,
+    which the two share with disjoint bits (the low half to g, the high
+    half to g + 1)."""
+    rng = np.random.default_rng(seed)
+    ng = n // 256
+    span = rng.integers(1, w, (b, ng))
+    wo = np.zeros((b, ng), np.int64)
+    wo[:, 1:] = np.cumsum(span - 1, axis=1)[:, :-1]
+    j = np.arange(w)
+    grp = rng.integers(0, 1 << 32, (b, ng, w), dtype=np.uint64)
+    grp = np.where(j < span[:, :, None], grp, 0)
+    grp[:, :, 0] &= 0xFFFF0000
+    last = (span - 1)[:, :, None]
+    np.put_along_axis(grp, last,
+                      np.take_along_axis(grp, last, 2) & 0xFFFF, 2)
+    return (torch.from_numpy(grp.astype(np.uint32).view(np.int32)),
+            torch.from_numpy(wo.astype(np.int32)))
+
+
+@pytest.mark.parametrize("b,n,w,max_words", [
+    (4, 65536, 99, 24706), (4, 65536, 74, 18435), (3, 2048, 74, 200)])
+def test_assemble_windows_kernel_matches_ref(card, b, n, w, max_words):
+    grp, wo = _k1_inputs(b, n, w, seed=n + w)
+    want = cuda_pack.assemble_windows_ref(grp, wo, max_words=max_words)
+    before = cuda_pack.LAUNCHES["assemble_windows"]
+    got = cuda_pack.assemble_windows(grp.to(card), wo.to(card),
+                                     max_words=max_words)
+    torch.cuda.synchronize()
+    assert cuda_pack.LAUNCHES["assemble_windows"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,n", [(4, 65536), (3, 1000), (2, 4096)])
+def test_huffman_lookup_kernel_matches_ref(card, b, n):
+    rng = np.random.default_rng(n)
+    lit = torch.from_numpy(rng.integers(0, 1 << 16, (b, 286)).astype(np.int32))
+    dist = torch.from_numpy(rng.integers(0, 1 << 16, (b, 30)).astype(np.int32))
+    sym = torch.from_numpy(rng.integers(-2, 300, (b, n)).astype(np.int32))
+    dsym = torch.from_numpy(rng.integers(-2, 40, (b, n)).astype(np.int32))
+    want = cuda_pack.huffman_lookup_ref(lit, dist, sym, dsym)
+    before = cuda_pack.LAUNCHES["huffman_lookup"]
+    got = cuda_pack.huffman_lookup(lit.to(card), dist.to(card), sym.to(card),
+                                   dsym.to(card))
+    torch.cuda.synchronize()
+    assert cuda_pack.LAUNCHES["huffman_lookup"] == before + 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,n", [(4, 65536), (3, 1000), (2, 8193)])
+def test_symbol_histogram_kernel_matches_ref(card, b, n):
+    rng = np.random.default_rng(n)
+    sym = rng.integers(-3, 330, (b, n)).astype(np.int32)
+    sym[0, : n // 2] = 97                     # one hot bin
+    dsym = rng.integers(270, 330, (b, n)).astype(np.int32)
+    sym, dsym = torch.from_numpy(sym), torch.from_numpy(dsym)
+    want = cuda_pack.symbol_histogram_ref(sym, dsym)
+    before = cuda_pack.LAUNCHES["symbol_histogram"]
+    got = cuda_pack.symbol_histogram(sym.to(card), dsym.to(card))
+    torch.cuda.synchronize()
+    assert cuda_pack.LAUNCHES["symbol_histogram"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("static,device_pack", [
+    (False, False), (True, True), (False, True)],
+    ids=["dynamic-token-path", "static-device-pack", "dynamic-device-pack"])
+def test_session_on_card_matches_cpu(card, monkeypatch, static, device_pack):
+    """Both engines held on one route: the CPU's and the card's bytes
+    agree."""
     import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
     from corpus import make_corpus     # tests/ is on sys.path under pytest
     c = make_corpus()
     data = c["text"][:300000] + c["binary"][:100000] + c["noise"][:50000]
+    monkeypatch.setattr(CudaEngine, "packs_on_device",
+                        lambda self, s: device_pack)
     p = qz.SessionParamsDeflate()
     if static:
         p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR

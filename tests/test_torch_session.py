@@ -4,7 +4,10 @@
 kernels, the port's host packer build) must give the same bytes as
 ``qatzip_tpu.codec.compress_buffer`` on a JAX-CPU ``TpuEngine`` with the
 same knobs, carried across by ``params_from_reference``: dynamic and
-static Huffman, every deflate framing. Stock zlib must decode the output
+static Huffman, every deflate framing, on the token path (host packer)
+and on the full-device pack: each side's own route, or the route that
+``QZTPU_DEVICE_PACK`` gives the JAX side with the port's engine held on
+the same one. Stock zlib must decode the output
 and the port's ``decompress`` must give the input back. All chunks are
 16 KiB, so JAX compiles its tokenizer once for the whole file.
 """
@@ -28,6 +31,7 @@ from qatzip_tpu_torch import convert
 from qatzip_tpu_torch.constants import (DataFormat, HuffmanHdr, QZ_DATA_ERROR,
                                         QZ_NOSW_NO_HW, QZ_NOT_SUPPORTED,
                                         QZ_PARAMS)
+from qatzip_tpu_torch.parallel.dispatch import CudaEngine
 
 from tests.corpus import make_corpus
 
@@ -47,9 +51,16 @@ def jax_engine():
 
 
 def _both(data, jax_engine, monkeypatch, *, static=False,
-          fmt=DataFormat.DEFLATE_GZIP_EXT):
-    """(JAX bytes, port bytes, port session) for one request."""
-    monkeypatch.setenv("QZTPU_DEVICE_PACK", "0")   # host packer, as the port
+          fmt=DataFormat.DEFLATE_GZIP_EXT, device_pack="0"):
+    """(JAX bytes, port bytes, port session) for one request: the JAX side
+    routed by QZTPU_DEVICE_PACK, the port's engine held on the same route
+    (None: both sides' own choice)."""
+    if device_pack is None:
+        monkeypatch.delenv("QZTPU_DEVICE_PACK", raising=False)
+    else:
+        monkeypatch.setenv("QZTPU_DEVICE_PACK", device_pack)
+        monkeypatch.setattr(CudaEngine, "packs_on_device",
+                            lambda self, static: device_pack == "1")
     jp = jparams.SessionParamsDeflate()
     jp.common.hw_buff_sz = HW
     jp.data_fmt = type(jp.data_fmt)(int(fmt))
@@ -84,6 +95,39 @@ def test_gzipext_matches_jax_codec(data, jax_engine, monkeypatch, static):
     assert _gunzip(got) == data
     assert sess.decompress(got) == data
     assert len(got) < len(data) / 2
+
+
+@pytest.mark.parametrize("static,device_pack,fmt", [
+    (True, None, DataFormat.DEFLATE_GZIP_EXT),
+    (True, None, DataFormat.DEFLATE_RAW),
+    (False, "1", DataFormat.DEFLATE_GZIP_EXT),
+    (False, "1", DataFormat.DEFLATE_RAW)],
+    ids=["static-default", "static-default-raw", "dynamic-device-pack",
+         "dynamic-device-pack-raw"])
+def test_device_pack_matches_jax_codec(data, jax_engine, monkeypatch, static,
+                                       device_pack, fmt):
+    """The full-device DEFLATE pack: static sessions take it by default,
+    dynamic ones held on it (their default on a CUDA device); raw output
+    joins non-final chunks with the full-flush sync."""
+    want, got, sess = _both(data, jax_engine, monkeypatch, static=static,
+                            fmt=fmt, device_pack=device_pack)
+    assert got == want
+    if fmt == DataFormat.DEFLATE_RAW:
+        assert zlib.decompress(got, -15) == data
+    else:
+        assert _gunzip(got) == data
+        assert sess.decompress(got) == data
+    assert len(got) < len(data) / 2
+
+
+@pytest.mark.parametrize("device,static,on_device", [
+    ("cpu", True, True), ("cpu", False, False), ("cuda", True, True),
+    ("cuda", False, True)])
+def test_engine_route(monkeypatch, device, static, on_device):
+    """Static sessions pack on the device everywhere; dynamic ones on a
+    CUDA device only. The JAX package's QZTPU_DEVICE_PACK is not read."""
+    monkeypatch.setenv("QZTPU_DEVICE_PACK", "0" if on_device else "1")
+    assert CudaEngine(device).packs_on_device(static) is on_device
 
 
 @pytest.mark.parametrize("fmt", [DataFormat.DEFLATE_GZIP,
@@ -157,6 +201,20 @@ def test_unported_paths_raise(data):
     with pytest.raises(qz.QzError) as e:
         sess.compress(data)
     assert e.value.rc == QZ_NOT_SUPPORTED
+    # the full-device pack raises for the same two
+    p.huffman_hdr = HuffmanHdr.STATIC_HDR
+    sess.setup_deflate(p)
+    with pytest.raises(qz.QzError) as e:
+        sess.compress(data)
+    assert e.value.rc == QZ_NOT_SUPPORTED
+    p.common.comp_lvl = 6
+    p.common.hw_buff_sz = 65536
+    sess.setup_deflate(p)
+    with pytest.raises(qz.QzError) as e:
+        sess.compress(data[:100000])
+    assert e.value.rc == QZ_PARAMS and "full-row" in str(e.value)
+    p.huffman_hdr = HuffmanHdr.DYNAMIC_HDR
+    p.common.comp_lvl = 1
     p.common.hw_buff_sz = HW
     p.data_fmt = DataFormat.DEFLATE_GZIP
     sess.setup_deflate(p)
