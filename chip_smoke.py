@@ -14,6 +14,9 @@ exits non-zero without the final line:
      the corpus): bit-identical, with CUDA-event times beside the plain
      version's, one PyTorch library call's where there is one, and the
      least time the card could take (bytes or operations over its peak);
+     the candidate search and the parse scan also on one adversarial
+     plane each at that shape (one hash bucket per window; parse chains
+     that never meet), bit-identical and timed;
   4. the device time of the tokenizer layer on the full tiles, then the
      three paths, each a 64 MiB request through QzSession(device="cuda")
      with the launch counts set to 0 just before and read just after:
@@ -101,6 +104,40 @@ def max_err(got, want) -> int:
     torch.cuda.synchronize()
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                for g, w in zip(got, want))
+
+
+def k2_probe_ops(key, ctx, probes: int, pbits: int):
+    """The operations the candidate search needs on these inputs,
+    whatever sorts them: one hash compare per probe, and an XOR and a
+    zero test per context word each probe compares (a probe stops at the
+    first word that differs), as the plain version counts them. Also
+    returns counts of the work: same-hash predecessors probed per
+    position, the share of positions that reach the probe cap, the
+    distinct buckets per window (min, mean, max) and the share of keys
+    in the overflow bucket (bit 31)."""
+    import torch
+    k64, _ = torch.sort(key.to(torch.int64) & 0xFFFFFFFF, dim=1)
+    h = k64 >> pbits
+    pos = k64 & ((1 << pbits) - 1)
+    words = [torch.gather(c.to(torch.int64), 1, pos) for c in ctx]
+    ops, prev, hits = 0, None, 0
+    for d in range(1, min(probes, key.shape[1] - 1) + 1):
+        same = h[:, d:] == h[:, :-d]              # sorted index i = d..w-1
+        # probe d runs where probe d - 1 stayed in the bucket
+        ops += same.numel() if prev is None else int(prev[:, 1:].sum())
+        hits += int(same.sum())
+        alive = same
+        for c in words:
+            ops += 2 * int(alive.sum())
+            alive = alive & (c[:, d:] == c[:, :-d])
+        prev = same
+    buckets = (h[:, 1:] != h[:, :-1]).sum(1) + 1
+    counts = {"probed_per_pos": hits / key.numel(),
+              "cap_share": float(prev.sum()) / key.numel(),
+              "buckets": (int(buckets.min()), float(buckets.float().mean()),
+                          int(buckets.max())),
+              "overflow_share": float((k64 >> 31).float().mean())}
+    return ops, counts
 
 
 def gunzip_members(blob: bytes):
@@ -202,12 +239,23 @@ def main() -> None:
               f"{plain_ms:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms "
               f"({b_by})")
 
+    def adversarial(name, plane, shape, err, ms, plain_ms):
+        """Check one kernel on an adversarial plane at the main path's
+        shape and keep its time beside the kernel's summary entry."""
+        check(err == 0, f"{name} differs from its plain version on the "
+              f"{plane} plane (max abs err {err})")
+        res[name]["adversarial"] = {"plane": plane, "max_abs_err": err,
+                                    "ms": ms, "plain_ms": plain_ms}
+        print(f"kernel {name} {shape} {plane}: identical, {ms:.4f} ms vs "
+              f"plain {plain_ms:.4f} ms")
+
     key, ctx, pbits, unwindow = lz77._search_inputs(
         tile, lengths, n=n, min_match=4, window=32768, ctx_words=ctx_words,
         search_seg=ss, search_overlap=ov)
     check(tuple(key.shape) == (2304, 8192) and ctx.shape[0] == 3,
           f"unexpected k2 shapes {tuple(key.shape)} {tuple(ctx.shape)}")
     kw = dict(probes=probes, min_match=4, pbits=pbits)
+    k2_ops, k2_counts = k2_probe_ops(key, ctx, probes, pbits)
     got = cuda_pack.candidate_search(key, ctx, **kw)
     err = max_err(got, cuda_pack.candidate_search_ref(key, ctx, **kw))
     k2_pos = key.numel()
@@ -218,13 +266,28 @@ def main() -> None:
            event_ms(lambda: cuda_pack.candidate_search_ref(key, ctx, **kw),
                     2), None,
            # key, ctx_words context words and the output, 4 bytes each;
-           # the bitonic sort's compare-exchanges
-           k2_pos * 4 * (2 + ctx_words),
-           key.shape[0] * (w // 2) * (w.bit_length() - 1)
-           * w.bit_length() // 2, tuple(key.shape))
+           # the probes' compares on this tile
+           k2_pos * 4 * (2 + ctx_words), k2_ops, tuple(key.shape))
     matched = float(((got >> 13) & 0x1F).gt(0).float().mean())
     print(f"kernel candidate_search: ctx {ctx_words} probes {probes}; "
-          f"positions with a candidate {matched:.3f}")
+          f"positions with a candidate {matched:.3f}; counts: same-hash "
+          f"predecessors probed per position {k2_counts['probed_per_pos']:.3f}"
+          f", positions at the cap {k2_counts['cap_share']:.3f}, buckets per "
+          f"window min / mean / max {k2_counts['buckets']}, keys in the "
+          f"overflow bucket {k2_counts['overflow_share']:.4f}")
+    # adversarial: every key of every window in one bucket, so every
+    # position probes its 7 predecessors on the tile's own context
+    one = ((12345 << pbits) | torch.arange(w, dtype=torch.int32,
+                                           device=dev)).expand_as(key)
+    one = one.contiguous()
+    adversarial("candidate_search", "one bucket", tuple(one.shape),
+                max_err(cuda_pack.candidate_search(one, ctx, **kw),
+                        cuda_pack.candidate_search_ref(one, ctx, **kw)),
+                event_ms(lambda: cuda_pack.candidate_search(one, ctx, **kw),
+                         10),
+                event_ms(lambda: cuda_pack.candidate_search_ref(
+                    one, ctx, **kw), 2))
+    del one
 
     kv = unwindow(got)
     is_match, ml_c, _dist, seg = lz77._parse_inputs(
@@ -232,14 +295,34 @@ def main() -> None:
         max_match=258, ctx_bytes=4 * ctx_words, parse_seg=8192)
     lanes = TILE_B * (n // seg)
     check(lanes == 2048 and seg == 8192, f"unexpected parse lanes {lanes}")
-    err = max_err(cuda_pack.parse_scan(is_match, ml_c, seg),
-                  cuda_pack.parse_scan_ref(is_match, ml_c, seg))
+    taken, lit = cuda_pack.parse_scan(is_match, ml_c, seg)
+    err = max_err((taken, lit), cuda_pack.parse_scan_ref(is_match, ml_c, seg))
+    tk_ml = ml_c[taken].float()
+    print(f"kernel parse_scan: counts: positions that may start a match "
+          f"{float(is_match.float().mean()):.4f}, that start a taken match "
+          f"{float(taken.float().mean()):.4f} (mean length "
+          f"{float(tk_ml.mean()):.2f}, max {int(tk_ml.max())}); 32-position "
+          f"sub-block starts on the true path "
+          f"{float((taken | lit)[:, ::32].float().mean()):.4f}")
+    del taken, lit, tk_ml
     record("parse_scan", "parse_scan.cu", "qatzip_tpu/ops/lz77.py:97", err,
            event_ms(lambda: cuda_pack.parse_scan(is_match, ml_c, seg), 10),
            event_ms(lambda: cuda_pack.parse_scan_ref(is_match, ml_c, seg), 1),
            None, is_match.numel() * (1 + 4 + 2), is_match.numel() * 4,
            (lanes, seg))
-    del key, ctx, got, kv, is_match, ml_c
+    # adversarial: each segment's first position a literal, every other a
+    # match of 4, so the true path (1 mod 4) never meets a walk started
+    # on a sub-block boundary (0 mod 4)
+    col = torch.arange(n, device=dev) % seg
+    nm_im = (col != 0).expand(TILE_B, n).contiguous()
+    nm_ml = torch.full((TILE_B, n), 4, dtype=torch.int32, device=dev)
+    adversarial("parse_scan", "never-meet", (lanes, seg),
+                max_err(cuda_pack.parse_scan(nm_im, nm_ml, seg),
+                        cuda_pack.parse_scan_ref(nm_im, nm_ml, seg)),
+                event_ms(lambda: cuda_pack.parse_scan(nm_im, nm_ml, seg), 10),
+                event_ms(lambda: cuda_pack.parse_scan_ref(nm_im, nm_ml, seg),
+                         1))
+    del key, ctx, got, kv, is_match, ml_c, nm_im, nm_ml
 
     # the device packers' planes of the same tile, at the level-1 knobs
     ml, dist, taken, lit = dp._analyze_planes(

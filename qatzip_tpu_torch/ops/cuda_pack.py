@@ -135,8 +135,9 @@ def candidate_search(key: torch.Tensor, ctx: torch.Tensor, *, probes: int,
     """Fused sort -> probe -> unsort candidate search over window rows.
 
     Args:
-      key: (rows, w) int32 holding uint32 (hash << pbits) | relpos, unique
-           per row; w a power of two, 2 <= w <= 8192, w <= 2**pbits.
+      key: (rows, w) int32 holding uint32 (hash << pbits) | relpos; w a
+           power of two, 2 <= w <= 8192, w <= 2**pbits; each row's relpos
+           a permutation of 0..w-1 (so its keys are unique).
       ctx: (ctx_words, rows, w) int32 context words (uint32 bit patterns),
            1 <= ctx_words <= 4.
     Returns:
@@ -178,6 +179,10 @@ def candidate_search(key: torch.Tensor, ctx: torch.Tensor, *, probes: int,
 # greedy-parse scan
 # ---------------------------------------------------------------------------
 
+#: the widest parse segment: the kernel stages one in shared memory
+MAX_PARSE_SEG = 8192
+
+
 def parse_scan_ref(is_match: torch.Tensor, ml: torch.Tensor,
                    seg: int):
     """Plain version of :func:`parse_scan`: one column step per position,
@@ -203,14 +208,17 @@ def parse_scan(is_match: torch.Tensor, ml: torch.Tensor, seg: int):
 
     Args:
       is_match: (b, n) bool, a match may start at p.
-      ml: (b, n) int32 match length at p (>= 1 where is_match).
-      seg: parse segment length; n % seg == 0.
+      ml: (b, n) int32 match length at p (>= 1 where is_match, and
+          ml + seg < 2**31); a match may run past its segment's end.
+      seg: parse segment length, 1 <= seg <= MAX_PARSE_SEG; n % seg == 0.
     Returns:
       (taken, lit): (b, n) bool — a match token starts at p / p emits a
       literal. Positions inside a taken match are neither.
     """
     b, n = is_match.shape
-    if seg < 1 or n % seg:
+    if not 1 <= seg <= MAX_PARSE_SEG:
+        raise ValueError(f"parse segment {seg} outside 1..{MAX_PARSE_SEG}")
+    if n % seg:
         raise ValueError(f"row length {n} is not a multiple of seg {seg}")
     if tuple(ml.shape) != (b, n):
         raise ValueError(f"ml shape {tuple(ml.shape)} != {(b, n)}")

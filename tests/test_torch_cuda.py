@@ -38,6 +38,78 @@ def _k2_inputs(w, rows, ctx_words, seed):
             torch.from_numpy(ctx.view(np.int32)), pbits)
 
 
+PARSE_PLANES = ("literal", "all-258", "never-meet", "boundaries", "past-end")
+K2_WINDOWS = ("one-bucket", "overflow", "reverse")
+
+
+def parse_plane(kind, b, nseg, seg, seed=0):
+    """(is_match, ml) numpy planes of shape (b, nseg * seg) that the
+    card's speculate-then-verify parse (32-position sub-blocks) must get
+    right as the plain version does:
+
+      literal:    no match anywhere;
+      all-258:    a match of 258 at every position, untrimmed;
+      never-meet: each segment's first position a literal, every other
+                  position a match of 4: the true path runs 1, 5, 9, ...
+                  and the walk from every sub-block's start (0 mod 4)
+                  never meets it;
+      boundaries: matches that end exactly on sub-block boundaries, the
+                  next one or the one after, and on the segment's end;
+      past-end:   random matches up to 4 * seg long, so ``reach`` passes
+                  the segment's end.
+    """
+    rng = np.random.default_rng(seed)
+    n = nseg * seg
+    p = np.broadcast_to(np.arange(n) % seg, (b, n))
+    q = p % 32
+    if kind == "literal":
+        im, ml = np.zeros((b, n), bool), rng.integers(4, 40, (b, n))
+    elif kind == "all-258":
+        im, ml = np.ones((b, n), bool), np.full((b, n), 258)
+    elif kind == "never-meet":
+        im, ml = p != 0, np.full((b, n), 4)
+    elif kind == "boundaries":
+        # from q = 5 to the next sub-block, or (p % 64 == 5) two on
+        im, ml = q == 5, np.where(p % 64 == 5, 91, 32 - q)
+    elif kind == "past-end":
+        im, ml = rng.random((b, n)) < 0.3, rng.integers(1, 4 * seg, (b, n))
+    else:
+        raise ValueError(kind)
+    return np.ascontiguousarray(im), ml.astype(np.int32)
+
+
+def k2_window(kind, w, rows, ctx_words, seed=0):
+    """(key, ctx, pbits): numpy uint32 windows that stress the card's
+    sort and probes, with context words over a tiny alphabet (bit 31 set
+    at random) so that matches, partial-byte ones too, are common:
+
+      one-bucket: every key in one hash bucket, so every position but
+                  the first few probes its ``probes`` predecessors;
+      overflow:   every key in the overflow bucket 1 << hb (bit 31 set
+                  at pbits 13);
+      reverse:    the hash falls as relpos rises (two positions a
+                  bucket), so the keys come in descending order.
+    """
+    rng = np.random.default_rng(seed)
+    pbits = max((w - 1).bit_length(), 1)
+    hb = min(18, 31 - pbits)
+    rel = np.arange(w, dtype=np.uint64)
+    if kind == "one-bucket":
+        h = np.full(w, 12345, np.uint64)
+    elif kind == "overflow":
+        h = np.full(w, 1 << hb, np.uint64)
+    elif kind == "reverse":
+        h = (np.uint64(w - 1) - rel) >> np.uint64(1)
+    else:
+        raise ValueError(kind)
+    key = np.broadcast_to((h << np.uint64(pbits)) | rel, (rows, w))
+    sym = rng.integers(0, 3, (ctx_words, rows, w)).astype(np.uint64)
+    top = rng.integers(0, 2, (ctx_words, rows, w)).astype(np.uint64) << 31
+    lowb = rng.integers(0, 2, (ctx_words, rows, w)).astype(np.uint64)
+    ctx = (sym * 0x00010101 + lowb + top).astype(np.uint32)
+    return np.ascontiguousarray(key, dtype=np.uint32), ctx, pbits
+
+
 @pytest.mark.parametrize("w,ctx_words,probes", [
     (8192, 3, 7), (8192, 4, 6), (1024, 3, 7), (256, 4, 6)])
 def test_candidate_search_kernel_matches_ref(card, w, ctx_words, probes):
@@ -60,6 +132,69 @@ def test_parse_scan_kernel_matches_ref(card, seg):
     got = cuda_pack.parse_scan(im.to(card), ml.to(card), seg)
     torch.cuda.synchronize()
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("seg", [256, 512, 768, 8192])
+@pytest.mark.parametrize("kind", PARSE_PLANES)
+def test_parse_scan_kernel_adversarial_planes(card, kind, seg):
+    im, ml = parse_plane(kind, 2, 3, seg, seed=seg)
+    im, ml = torch.from_numpy(im), torch.from_numpy(ml)
+    want = cuda_pack.parse_scan_ref(im, ml, seg)
+    before = cuda_pack.LAUNCHES["parse_scan"]
+    got = cuda_pack.parse_scan(im.to(card), ml.to(card), seg)
+    torch.cuda.synchronize()
+    assert cuda_pack.LAUNCHES["parse_scan"] == before + 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_parse_scan_kernel_scalar_path(card):
+    """A segment that is not a multiple of 16, and planes that start off
+    a 16-byte boundary, take the kernel's scalar path."""
+    im, ml = parse_plane("past-end", 3, 2, 1000, seed=1)
+    cases = [(torch.from_numpy(im), torch.from_numpy(ml), 1000, card)]
+    im, ml = parse_plane("never-meet", 2, 2, 512, seed=2)
+    flat_im = torch.zeros(im.size + 1, dtype=torch.bool)
+    flat_ml = torch.zeros(ml.size + 1, dtype=torch.int32)
+    flat_im[1:] = torch.from_numpy(im).reshape(-1)
+    flat_ml[1:] = torch.from_numpy(ml).reshape(-1)
+    # sliced on the card: contiguous, one element past an aligned start
+    cases.append((flat_im.to(card)[1:].reshape(2, 1024),
+                  flat_ml.to(card)[1:].reshape(2, 1024), 512, card))
+    for it, mt, seg, dev in cases:
+        want = cuda_pack.parse_scan_ref(it.cpu(), mt.cpu(), seg)
+        got = cuda_pack.parse_scan(it.to(dev), mt.to(dev), seg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("w", [2, 256, 8192])
+@pytest.mark.parametrize("kind", K2_WINDOWS)
+def test_candidate_search_kernel_adversarial_windows(card, kind, w):
+    key, ctx, pbits = k2_window(kind, w, 3, 3, seed=w)
+    key = torch.from_numpy(key.view(np.int32))
+    ctx = torch.from_numpy(ctx.view(np.int32))
+    kw = dict(probes=7, min_match=4, pbits=pbits)
+    want = cuda_pack.candidate_search_ref(key, ctx, **kw)
+    before = cuda_pack.LAUNCHES["candidate_search"]
+    got = cuda_pack.candidate_search(key.to(card), ctx.to(card), **kw)
+    torch.cuda.synchronize()
+    assert cuda_pack.LAUNCHES["candidate_search"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("ctx_words,probes", [(1, 63), (2, 1), (3, 7),
+                                              (4, 6)])
+def test_candidate_search_kernel_one_bucket_ctx_words(card, ctx_words,
+                                                      probes):
+    key, ctx, pbits = k2_window("one-bucket", 8192, 2, ctx_words, seed=9)
+    key = torch.from_numpy(key.view(np.int32))
+    ctx = torch.from_numpy(ctx.view(np.int32))
+    kw = dict(probes=probes, min_match=4, pbits=pbits)
+    want = cuda_pack.candidate_search_ref(key, ctx, **kw)
+    got = cuda_pack.candidate_search(key.to(card), ctx.to(card), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert ((want >> 13) & 0x1F).gt(0).any()
 
 
 def test_wrapper_rejects_host_and_device_mix(card):

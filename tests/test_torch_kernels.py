@@ -6,7 +6,10 @@ plain PyTorch version; these tests hold that version bit for bit
 
   * ``candidate_search`` against TPU kernel k2 in Pallas interpret mode,
     as tests/test_pallas_kernels.py runs it;
-  * ``parse_scan`` against the jitted ``lz77._parse_scan``.
+  * ``parse_scan`` against the jitted ``lz77._parse_scan``;
+
+each on random inputs and on the adversarial planes and windows of
+tests/test_torch_cuda.py, which the card holds its kernels to.
 
 The CUDA kernels themselves are compared with their plain versions on
 the card by tests/test_torch_cuda.py.
@@ -23,6 +26,10 @@ from qatzip_tpu.ops.lz77 import _parse_scan
 from qatzip_tpu.ops.pallas_pack import candidate_search as jax_k2
 from qatzip_tpu_torch.ops import cuda_pack
 from qatzip_tpu_torch.ops.lz77 import HASH_MUL, _hash
+from test_torch_cuda import PARSE_PLANES, k2_window, parse_plane
+
+# one jit for every parse test, so each (seg, nseg, b) compiles once
+_jax_parse_scan = jax.jit(_parse_scan, static_argnums=(2, 3, 4))
 
 
 def _k2_inputs(w, rows, ctx_words, seed):
@@ -69,14 +76,60 @@ def test_parse_scan_ref_matches_jax(seg):
     n = seg * nseg
     im = rng.random((b, n)) < 0.3
     ml = np.where(im, rng.integers(4, 40, (b, n)), 0).astype(np.int32)
-    jax_parse_scan = jax.jit(_parse_scan, static_argnums=(2, 3, 4))
-    want_t, want_l = jax_parse_scan(jnp.asarray(im), jnp.asarray(ml),
-                                    seg, nseg, b)
+    want_t, want_l = _jax_parse_scan(jnp.asarray(im), jnp.asarray(ml),
+                                     seg, nseg, b)
     got_t, got_l = cuda_pack.parse_scan(torch.from_numpy(im),
                                         torch.from_numpy(ml), seg)
     assert np.array_equal(got_t.numpy(), np.asarray(want_t))
     assert np.array_equal(got_l.numpy(), np.asarray(want_l))
     assert got_t.any() and got_l.any()
+
+
+@pytest.mark.parametrize("seg", [512, 8192])
+@pytest.mark.parametrize("kind", PARSE_PLANES)
+def test_parse_scan_ref_adversarial_matches_jax(kind, seg):
+    """The card tests' adversarial planes, at the shapes above (3 rows of
+    2 segments): the plain version equals the JAX scan on each."""
+    im, ml = parse_plane(kind, 3, 2, seg, seed=seg)
+    want_t, want_l = _jax_parse_scan(jnp.asarray(im), jnp.asarray(ml),
+                                     seg, 2, 3)
+    got_t, got_l = cuda_pack.parse_scan(torch.from_numpy(im),
+                                        torch.from_numpy(ml), seg)
+    assert np.array_equal(got_t.numpy(), np.asarray(want_t))
+    assert np.array_equal(got_l.numpy(), np.asarray(want_l))
+
+
+def test_parse_scan_raises_past_max_seg():
+    """The kernel stages one segment in shared memory, so the wrapper
+    takes at most 8192 positions a segment, on every device."""
+    im = torch.zeros((1, 16384), dtype=torch.bool)
+    ml = torch.zeros((1, 16384), dtype=torch.int32)
+    with pytest.raises(ValueError, match="parse segment"):
+        cuda_pack.parse_scan(im, ml, 16384)
+    with pytest.raises(ValueError, match="parse segment"):
+        cuda_pack.parse_scan(im, ml, 0)
+    taken, lit = cuda_pack.parse_scan(im, ml, cuda_pack.MAX_PARSE_SEG)
+    assert lit.all() and not taken.any()
+
+
+@pytest.mark.parametrize("kind,w,rows,ctx_words,probes", [
+    ("one-bucket", 1024, 2, 1, 7), ("one-bucket", 1024, 2, 2, 7),
+    ("one-bucket", 1024, 2, 3, 7), ("one-bucket", 8192, 1, 4, 6),
+    ("overflow", 8192, 1, 3, 7), ("reverse", 8192, 1, 3, 7)])
+def test_candidate_search_ref_adversarial_matches_k2(kind, w, rows,
+                                                     ctx_words, probes):
+    """The card tests' adversarial windows against TPU kernel k2 in
+    interpret mode."""
+    key, ctx, pbits = k2_window(kind, w, rows, ctx_words, seed=w)
+    want = np.asarray(jax_k2(
+        jnp.asarray(key), [jnp.asarray(c) for c in ctx], w=w, probes=probes,
+        ctx_words=ctx_words, min_match=4, pbits=pbits, interpret=True))
+    got = cuda_pack.candidate_search(
+        torch.from_numpy(key.view(np.int32)),
+        torch.from_numpy(ctx.view(np.int32)), probes=probes, min_match=4,
+        pbits=pbits).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    assert ((want >> 13) & 0x1F).any()
 
 
 def test_hash_matches_uint32_arithmetic():
