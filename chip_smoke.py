@@ -14,9 +14,13 @@ exits non-zero without the final line:
      the corpus): bit-identical, with CUDA-event times beside the plain
      version's, one PyTorch library call's where there is one, and the
      least time the card could take (bytes or operations over its peak);
-     the candidate search and the parse scan also on one adversarial
-     plane each at that shape (one hash bucket per window; parse chains
-     that never meet), bit-identical and timed;
+     the candidate search, the parse scan and the row bit-packer also on
+     one adversarial plane each at that shape (one hash bucket per window;
+     parse chains that never meet; back-to-back 4-byte matches at distance
+     32768), bit-identical and timed; the row bit-packer also against the
+     route it replaced (emission planes, offsets, the 256-position group
+     pack and the window assembly, in plain torch), bit-identical, with
+     that route's time;
   4. the device time of the tokenizer layer on the full tiles, then the
      three paths, each a 64 MiB request through QzSession(device="cuda")
      with the launch counts set to 0 just before and read just after:
@@ -26,7 +30,8 @@ exits non-zero without the final line:
      the CPU, measured here against the device pack). Every member
      decodes with stock zlib, the session decodes the whole, a second
      compress gives the same bytes, and every kernel of the path was
-     launched. Then each path's breakdown and a profile of one compress;
+     launched; the path line gives the peak device memory of the two
+     compresses. Then each path's breakdown and a profile of one compress;
   5. the first 1 MiB through device="cpu" and device="cuda" on each
      path, both engines held on it: same bytes;
   6. the kernel summary line, the card line, and {"ok": true, ...}.
@@ -53,10 +58,10 @@ OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside the tensor cores
 PATHS = [
     ("token", False, False, ("candidate_search", "parse_scan")),
     ("static-device-pack", True, None,
-     ("candidate_search", "parse_scan", "assemble_windows")),
+     ("candidate_search", "parse_scan", "pack_rows")),
     ("dynamic-device-pack", False, None,
      ("candidate_search", "parse_scan", "symbol_histogram",
-      "huffman_lookup", "assemble_windows")),
+      "huffman_lookup", "pack_rows")),
 ]
 # the path whose launches the kernel summary reports: the default
 # (dynamic) session on the card, which runs all five kernels
@@ -88,6 +93,23 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_cost(fn):
+    """(device operations launched, peak device bytes allocated above what
+    was allocated before) of one run of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return ops, peak
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -138,6 +160,38 @@ def k2_probe_ops(key, ctx, probes: int, pbits: int):
                           int(buckets.max())),
               "overflow_share": float((k64 >> 31).float().mean())}
     return ops, counts
+
+
+def pr3_route(emit, base, max_words: int, group_w: int):
+    """The route the row bit-packer replaced, as the port ran it before:
+    the emission planes and their offsets (``emit()`` and ``base``), the
+    group pack (each 256-position group's emissions scatter-added into a
+    window of ``group_w`` words) and the window assembly (the windows
+    scatter-added at their word offsets), in plain torch. A yardstick for
+    ``pack_rows``; the port does not use it."""
+    import torch
+    from qatzip_tpu_torch.ops import deflate_pack as dp
+    from qatzip_tpu_torch.ops.cuda_pack import _as_i32
+    bits, nbits = emit()
+    off, end = dp._offsets(nbits, base)
+    b, n = bits.shape
+    rows = b * (n // 256)
+    s = off & 31
+    lo = ((bits << s) & 0xFFFFFFFF).reshape(rows, 256)
+    hi = ((bits >> 1) >> (31 - s)).reshape(rows, 256)
+    word = (off >> 5).reshape(rows, 256)
+    gbase = word[:, :1]
+    widx = word - gbase
+    nz = (nbits > 0).reshape(rows, 256)
+    grp = torch.zeros((rows, group_w), dtype=torch.int64, device=bits.device)
+    for part, at in ((lo, widx), (hi, widx + 1)):
+        ok = nz & (at < group_w)
+        grp.scatter_add_(1, torch.where(ok, at, 0), torch.where(ok, part, 0))
+    idx = (gbase + torch.arange(group_w, device=bits.device)).reshape(b, -1)
+    out = torch.zeros((b, max_words + 1), dtype=torch.int64,
+                      device=bits.device)
+    out.scatter_add_(1, idx.clamp(max=max_words), grp.reshape(b, -1))
+    return _as_i32(out[:, :max_words]), end.to(torch.int32)
 
 
 def gunzip_members(blob: bytes):
@@ -224,16 +278,18 @@ def main() -> None:
     def record(name, source, replaces, err, ms, plain_ms, library_ms,
                nbytes, ops, shape):
         """Check one kernel's comparison, print it, and keep it for the
-        summary (a later record of the same kernel replaces it)."""
+        summary (a later record of the same kernel replaces its numbers)."""
         b_ms, b_by = bound_ms(nbytes, ops)
         check(err == 0, f"{name} differs from its plain version (max abs "
               f"err {err})")
-        res[name] = {
+        # keys an earlier record added (another mode, adversarial planes)
+        # stay
+        res[name] = {**res.get(name, {}), **{
             "name": name, "route": "cuda",
             "source": f"qatzip_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "bound_by": b_by, "library_ms": library_ms}}
         lib_s = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"kernel {name} {shape}: identical, {ms:.4f} ms vs plain "
               f"{plain_ms:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms "
@@ -244,8 +300,9 @@ def main() -> None:
         shape and keep its time beside the kernel's summary entry."""
         check(err == 0, f"{name} differs from its plain version on the "
               f"{plane} plane (max abs err {err})")
-        res[name]["adversarial"] = {"plane": plane, "max_abs_err": err,
-                                    "ms": ms, "plain_ms": plain_ms}
+        res[name].setdefault("adversarial", []).append(
+            {"plane": plane, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms})
         print(f"kernel {name} {shape} {plane}: identical, {ms:.4f} ms vs "
               f"plain {plain_ms:.4f} ms")
 
@@ -329,35 +386,76 @@ def main() -> None:
         tile, lengths, n=n, parse_seg=8192, ctx_words=ctx_words,
         probes=probes, search_seg=ss, search_overlap=ov)
 
-    def k1_phase(label, bits, nbits, off, group_w, max_words):
-        grp, wo = dp._group_pack(bits, nbits, off, group_w)
-        grp, wo = grp.contiguous(), wo.contiguous()
-        err = max_err(cuda_pack.assemble_windows(grp, wo, max_words=max_words),
-                      cuda_pack.assemble_windows_ref(grp, wo,
-                                                     max_words=max_words))
-        b_, ng, w_ = grp.shape
-        idx = (wo.to(torch.int64)[:, :, None]
-               + torch.arange(w_, device=dev)).reshape(b_, -1)
-        idx = torch.where(idx < max_words, idx, max_words)
-        vals = cuda_pack._u32(grp).reshape(b_, -1)
-        record("assemble_windows", "assemble_windows.cu",
+    def k1_phase(label, planes, base, max_words, group_w, emit, **kw):
+        """The row bit-packer on the tile's own planes against its plain
+        version and against the route it replaced; recorded under
+        pack_rows (the dynamic phase, the wider one, comes last)."""
+        args = (*planes, base)
+        got = dp.pack_rows(*args, max_words=max_words, **kw)
+        err = max_err(got, dp.pack_rows_ref(*args, max_words=max_words,
+                                            **kw))
+        base64 = base.to(torch.int64)[:, None]
+        old = pr3_route(emit, base64, max_words, group_w)
+        check(max_err(got, old) == 0, f"pack_rows ({label}) differs from "
+              "the route it replaced")
+        old_ms = event_ms(lambda: pr3_route(emit, base64, max_words,
+                                            group_w), 3)
+        b_, n_ = planes[0].shape
+        # every plane byte read once (int32 ml, dist and, dynamic, lpack
+        # and dpack; the byte planes), the words, end and base once
+        per_pos = sum(t.element_size() for t in (*planes, *kw.values()))
+        record("pack_rows", "pack_rows.cu",
                "qatzip_tpu/ops/pallas_pack.py:342", err,
-               event_ms(lambda: cuda_pack.assemble_windows(
-                   grp, wo, max_words=max_words), 20),
-               event_ms(lambda: cuda_pack.assemble_windows_ref(
-                   grp, wo, max_words=max_words), 3),
-               event_ms(lambda: torch.zeros(
-                   (b_, max_words + 1), dtype=torch.int64,
-                   device=dev).scatter_add_(1, idx, vals), 10),
-               grp.numel() * 4 + wo.numel() * 4 + b_ * max_words * 4,
-               grp.numel(), f"{label} {tuple(grp.shape)} -> ({b_}, "
-               f"{max_words})")
+               event_ms(lambda: dp.pack_rows(*args, max_words=max_words,
+                                             **kw), 20),
+               event_ms(lambda: dp.pack_rows_ref(*args, max_words=max_words,
+                                                 **kw), 3), None,
+               b_ * n_ * per_pos + b_ * (max_words + 2) * 4,
+               # at the least: the emission's code arithmetic (~8), its
+               # offset (a scan add) and two word parts (shift, OR each)
+               b_ * n_ * 14, f"{label} ({b_}, {n_}) -> ({b_}, {max_words})")
+        new_ops, new_peak = device_cost(
+            lambda: dp.pack_rows(*args, max_words=max_words, **kw))
+        old_ops, old_peak = device_cost(
+            lambda: pr3_route(emit, base64, max_words, group_w))
+        entry = res["pack_rows"]
+        entry[label] = {k: entry[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                              "bound_ms")}
+        entry[label].update(pr3_route_ms=old_ms, pr3_route_device_ops=old_ops,
+                            pr3_route_peak_bytes=old_peak,
+                            device_ops=new_ops, peak_bytes=new_peak)
+        print(f"kernel pack_rows {label}: identical to the PR 3 route "
+              f"(emissions, offsets, group pack, plain assembly), which takes "
+              f"{old_ms:.4f} ms, {old_ops} device operations and {old_peak} "
+              f"bytes of device memory above the planes a tile; pack_rows "
+              f"{new_ops} and {new_peak}")
 
-    bits, nbits = dp.static_emissions(tile, ml, dist, taken, lit)
-    off, _end = dp._offsets(nbits, dp.HDR_BITS)
+    def k1_adversarial(label, base, max_words, kw_of):
+        """The row bit-packer on back-to-back 4-byte matches at distance
+        32768 over the tile: the widest distance parts, straddling word
+        boundaries throughout; ``kw_of`` gives the mode's planes."""
+        tk = (torch.arange(n, device=dev) % 4 == 0).expand(TILE_B, n)
+        tk = tk.contiguous()
+        ml4 = torch.where(tk, 4, 0).to(torch.int32)
+        d4 = torch.where(tk, 32768, 1).to(torch.int32)
+        kw = kw_of(ml4, d4, tk)
+        args = (ml4, d4, tk, torch.zeros_like(tk), base)
+        adversarial("pack_rows", f"far-4 {label}", (TILE_B, n),
+                    max_err(dp.pack_rows(*args, max_words=max_words, **kw),
+                            dp.pack_rows_ref(*args, max_words=max_words,
+                                             **kw)),
+                    event_ms(lambda: dp.pack_rows(*args, max_words=max_words,
+                                                  **kw), 20),
+                    event_ms(lambda: dp.pack_rows_ref(
+                        *args, max_words=max_words, **kw), 3))
+
+    planes = (ml, dist, taken, lit)
+    hdr3 = torch.full((TILE_B,), dp.HDR_BITS, dtype=torch.int32, device=dev)
     mw_static = (n * 9 + dp.HDR_BITS + dp.EOB_BITS + 31) // 32 + 2
-    k1_phase("static", bits, nbits, off, dp.GROUP_W, mw_static)
-    del bits, nbits, off
+    k1_phase("static", planes, hdr3, mw_static, 74,
+             lambda: dp.static_emissions(tile, *planes), data=tile)
+    k1_adversarial("static", hdr3, mw_static,
+                   lambda ml4, d4, tk: {"data": tile})
 
     sym, dsym_m = dp.hist_symbols(tile, ml, dist, taken, lit)
     hist = cuda_pack.symbol_histogram(sym, dsym_m)
@@ -404,13 +502,20 @@ def main() -> None:
            tuple(lsym.shape))
     del lsym, ldsym, table, tidx
 
-    bits, nbits = dp.dynamic_emissions(ml, dist, taken, lit, lpack, dpack)
-    off, _end = dp._offsets(
-        nbits, torch.from_numpy(hbits).to(dev).to(torch.int64)[:, None])
+    hdr = torch.from_numpy(hbits).to(dev)
     mw_dyn = (n * dp.DYN_LIMIT + 4096 + 31) // 32 + 2
-    # the summary keeps this, the wider of the two k1 comparisons
-    k1_phase("dynamic", bits, nbits, off, dp.DYN_GROUP_W, mw_dyn)
-    del bits, nbits, off, lpack, dpack, ml, dist, taken, lit, hist
+
+    def lookup(ml4, d4, tk):
+        """The far-4 plane's codes in the tile's own tables."""
+        lp, dq = cuda_pack.huffman_lookup(
+            lit_pack, dist_pack,
+            *dp.lookup_symbols(tile, ml4, d4, tk, torch.zeros_like(tk)))
+        return {"lpack": lp, "dpack": dq}
+    k1_adversarial("dynamic", hdr, mw_dyn, lookup)
+    k1_phase("dynamic", planes, hdr, mw_dyn, 99,
+             lambda: dp.dynamic_emissions(*planes, lpack, dpack),
+             lpack=lpack, dpack=dpack)
+    del lpack, dpack, ml, dist, taken, lit, hist, planes
     torch.cuda.empty_cache()
 
     # -- 4. the tokenizer layer, then the three paths ---------------------------------
@@ -449,6 +554,7 @@ def main() -> None:
             p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
         sess = qz.QzSession(device="cuda")
         check(sess.setup_deflate(p) == qz.QZ_OK, "setup_deflate failed")
+        torch.cuda.reset_peak_memory_stats()
         cuda_pack.reset_launch_counts()
         t0 = time.perf_counter()
         out = sess.compress(data)
@@ -470,11 +576,13 @@ def main() -> None:
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         check(out2 == out, f"{name}: a second compress gave other bytes")
+        peak = torch.cuda.max_memory_allocated()
         print(f"path {name}: {len(data)} bytes -> {len(out)} in {members} "
               f"members, ratio {len(data) / len(out):.4f}, vs zlib level 1 "
               f"{zl1 / len(out):.4f}; compress cold {cold_s:.3f} s = "
               f"{len(data) / cold_s / 1e9:.4f} GB/s, warm {warm_s:.3f} s = "
-              f"{len(data) / warm_s / 1e9:.4f} GB/s; launches {launches}")
+              f"{len(data) / warm_s / 1e9:.4f} GB/s; peak device memory "
+              f"{peak} bytes; launches {launches}")
 
         # breakdown: the engine's stages apart
         eng = sess._engine
@@ -535,7 +643,8 @@ def main() -> None:
         dev_us = sum(e.self_device_time_total for e in evs)
         print(f"profile {name}: one compress {prof_s:.3f} s under the "
               f"profiler, device busy {dev_us / 1e3:.2f} ms = "
-              f"{dev_us / 1e4 / prof_s:.2f} % of it")
+              f"{dev_us / 1e4 / prof_s:.2f} % of it, "
+              f"{sum(e.count for e in evs)} device operations")
         for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"profile {name}:   {e.self_device_time_total / 1e3:9.3f} "
                   f"ms {100 * e.self_device_time_total / max(dev_us, 1):5.1f}"

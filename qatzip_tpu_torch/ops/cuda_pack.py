@@ -14,7 +14,10 @@ what it replaces:
 
   * ``candidate_search`` — TPU kernel k2 (``pallas_pack.py::candidate_search``);
   * ``parse_scan`` — the greedy-parse recurrence ``lz77.py::_parse_scan``;
-  * ``assemble_windows`` — TPU kernel k1 (``pallas_pack.py::assemble_windows``);
+  * ``pack_rows`` — TPU kernel k1 (``pallas_pack.py::assemble_windows``)
+    together with the emission, offset and group-pack stages that fed it;
+    its wrapper and plain version live in ``deflate_pack.py``, beside the
+    emission functions they share;
   * ``huffman_lookup`` — TPU kernel k3 (``pallas_pack.py::huffman_lookup``);
   * ``symbol_histogram`` — TPU kernel k4 (``pallas_pack.py::symbol_histogram``).
 
@@ -31,7 +34,7 @@ import threading
 
 import torch
 
-LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "assemble_windows": 0,
+LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "pack_rows": 0,
             "huffman_lookup": 0, "symbol_histogram": 0}
 
 _lib = None
@@ -56,9 +59,8 @@ def kernels():
                                                 ci, ci, vp]
             lib.qz_parse_scan.restype = ci
             lib.qz_parse_scan.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-            lib.qz_assemble_windows.restype = ci
-            lib.qz_assemble_windows.argtypes = [vp, vp, vp, ci, ci, ci, ci,
-                                                vp]
+            lib.qz_pack_rows.restype = ci
+            lib.qz_pack_rows.argtypes = [vp] * 10 + [ci, ci, ci, vp]
             lib.qz_huffman_lookup.restype = ci
             lib.qz_huffman_lookup.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                               vp]
@@ -200,7 +202,8 @@ def parse_scan_ref(is_match: torch.Tensor, ml: torch.Tensor,
         taken[p] = tk
         lit[p] = free & ~im[p]
         reach = torch.where(tk, mls[p] + p, reach)
-    return taken.t().reshape(b, n), lit.t().reshape(b, n)
+    return (taken.t().reshape(b, n).contiguous(),
+            lit.t().reshape(b, n).contiguous())
 
 
 def parse_scan(is_match: torch.Tensor, ml: torch.Tensor, seg: int):
@@ -245,73 +248,6 @@ def parse_scan(is_match: torch.Tensor, ml: torch.Tensor, seg: int):
 def _as_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 holding uint32 values -> int32 with the same bit pattern."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
-def _u32(x: torch.Tensor) -> torch.Tensor:
-    """int32 bit patterns -> their uint32 values in int64."""
-    return x.to(torch.int64) & 0xFFFFFFFF
-
-
-# ---------------------------------------------------------------------------
-# k1: window assembly
-# ---------------------------------------------------------------------------
-
-#: shared memory one CTA may opt in to on the H100 (227 KB)
-MAX_SMEM = 232448
-
-
-def assemble_windows_ref(grp: torch.Tensor, wo: torch.Tensor, *,
-                         max_words: int) -> torch.Tensor:
-    """Plain version of :func:`assemble_windows`: an int64 scatter-add
-    that drops words at or past ``max_words`` (the bits two windows give
-    one word are disjoint, so add equals OR)."""
-    b, ng, w = grp.shape
-    idx = wo.to(torch.int64)[:, :, None] + torch.arange(
-        w, dtype=torch.int64, device=grp.device)
-    keep = (idx >= 0) & (idx < max_words)
-    out = torch.zeros((b, max_words + 1), dtype=torch.int64,
-                      device=grp.device)
-    out.scatter_add_(1, torch.where(keep, idx, max_words).reshape(b, -1),
-                     torch.where(keep, _u32(grp), 0).reshape(b, -1))
-    return _as_i32(out[:, :max_words])
-
-
-def assemble_windows(grp: torch.Tensor, wo: torch.Tensor, *,
-                     max_words: int) -> torch.Tensor:
-    """Place group windows at word offsets, OR-combining overlaps.
-
-    Args:
-      grp: (B, ngroups, W) int32 window words (uint32 bit patterns).
-      wo:  (B, ngroups) int32 word offset of each window.
-      max_words: output words per row; window words at or past it are
-           dropped.
-    Returns:
-      (B, max_words) int32 bit patterns.
-    """
-    b, ng, w = grp.shape
-    if tuple(wo.shape) != (b, ng):
-        raise ValueError(f"wo shape {tuple(wo.shape)} != {(b, ng)}")
-    if max_words < 1:
-        raise ValueError(f"max_words {max_words} must be positive")
-    _require(grp, "grp", torch.int32, grp.device)
-    _require(wo, "wo", torch.int32, grp.device)
-    if grp.device.type == "cpu":
-        return assemble_windows_ref(grp, wo, max_words=max_words)
-    if grp.device.type != "cuda":
-        raise ValueError(f"unsupported device {grp.device}")
-    if max_words * 4 > MAX_SMEM:
-        raise ValueError(f"a row of {max_words} words does not fit the "
-                         f"{MAX_SMEM} bytes of shared memory of one CTA")
-    out = torch.empty((b, max_words), dtype=torch.int32, device=grp.device)
-    if b == 0:
-        return out
-    lib = kernels()
-    rc = lib.qz_assemble_windows(grp.data_ptr(), wo.data_ptr(),
-                                 out.data_ptr(), b, ng, w, max_words,
-                                 _stream())
-    _check("assemble_windows", rc)
-    LAUNCHES["assemble_windows"] += 1
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,17 +5,19 @@ final deflate bitstream words of each chunk, so the fetch carries
 compressed words instead of tokens and the host only frames members.
 Words and bit counts are bit-identical to the JAX package's.
 
-  1. emission planes — every position p emits its bits: a taken match its
+  1. emissions — every position p emits its bits: a taken match its
      length and distance codes with their extra bits, a literal its code,
      a covered position nothing;
-  2. bit offsets — one exclusive cumsum of the per-position bit counts;
-  3. group pack — positions are grouped (GROUP = 256); each group's
-     emissions are ORed into a window of ``group_w`` words based at the
-     group's first word. Plain torch: one int64 ``scatter_add_`` of the
-     low and high parts of every emission (the bits that two emissions
-     give one word are disjoint, so add equals OR);
-  4. assembly — the CUDA kernel ``assemble_windows`` (the port of TPU
-     kernel k1) places every window at its word offset.
+  2. bit offsets — the exclusive prefix of the per-position bit counts;
+  3. placement — every emission ORed into its row's words at its offset.
+
+All three are one CUDA kernel, ``pack_rows`` (``csrc/pack_rows.cu``),
+which reads the parse planes once and writes only the final words. It
+replaces TPU kernel k1 and the stages that fed it on the TPU (int64
+emission planes, a cumsum, and a 256-position group pack into fixed-width
+windows that k1 placed). Its plain version builds the emission planes
+(:func:`static_emissions`, :func:`dynamic_emissions`), their offsets,
+and scatter-adds every emission's two word parts straight into the row.
 
 The static packer's stream starts with the 3-bit block header (BFINAL=0,
 BTYPE=01); its end-of-block code is seven zero bits, already there. The
@@ -44,18 +46,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .cuda_pack import (_as_i32, assemble_windows, huffman_lookup,
-                        symbol_histogram)
+from .cuda_pack import (LAUNCHES, _as_i32, _check, _require, _stream,
+                        huffman_lookup, kernels, symbol_histogram)
 from .lz77 import _analyze
 
-GROUP = 256          # positions per pack group
-# worst case bits per group: 256 literals x 9 bits = 2304, plus a 31-bit
-# start straddle -> 73 words; +1 guard
-GROUP_W = 74
 HDR_BITS = 3         # BFINAL + BTYPE(01), emitted as 0b010 (BFINAL=0)
 EOB_BITS = 7         # static end-of-block code is seven 0 bits
 DYN_LIMIT = 12       # code-length limit of both dynamic trees
-DYN_GROUP_W = (GROUP * DYN_LIMIT + 31) // 32 + 3   # all-lit worst + straddle
 
 
 def _rev16(x: torch.Tensor, nbits) -> torch.Tensor:
@@ -132,41 +129,6 @@ def _offsets(nbits: torch.Tensor, base):
     return incl - nbits, incl[:, -1]
 
 
-def _group_pack(bits: torch.Tensor, nbits: torch.Tensor, off: torch.Tensor,
-                group_w: int):
-    """OR each group's emissions into its ``group_w``-word window.
-
-    bits, nbits, off: (B, n) int64, emissions <= 32 bits. Returns (grp
-    (B, n/GROUP, group_w), wo (B, n/GROUP)), int32 bit patterns and the
-    word offset of each window, as ``assemble_windows`` takes them."""
-    b, n = bits.shape
-    ngroups = n // GROUP
-    rows = b * ngroups
-    s = off & 31
-    lo = (bits << s) & 0xFFFFFFFF
-    hi = (bits >> 1) >> (31 - s)             # unsigned; safe for s == 0
-    word = (off >> 5).reshape(rows, GROUP)
-    gbase = word[:, :1]                      # off is monotone: word >= gbase
-    widx = word - gbase
-    nz = (nbits > 0).reshape(rows, GROUP)
-    ok_lo = nz & (widx < group_w)
-    ok_hi = nz & (widx + 1 < group_w)
-    buf = torch.zeros((rows, group_w), dtype=torch.int64, device=bits.device)
-    buf.scatter_add_(1, torch.where(ok_lo, widx, 0),
-                     torch.where(ok_lo, lo.reshape(rows, GROUP), 0))
-    buf.scatter_add_(1, torch.where(ok_hi, widx + 1, 0),
-                     torch.where(ok_hi, hi.reshape(rows, GROUP), 0))
-    return (_as_i32(buf).reshape(b, ngroups, group_w),
-            gbase.reshape(b, ngroups).to(torch.int32))
-
-
-def _group_pack_assemble(bits, nbits, off, max_words: int, group_w: int):
-    """Group pack, then the k1 assembly: (B, max_words) int32 words."""
-    grp, wo = _group_pack(bits, nbits, off, group_w)
-    return assemble_windows(grp.contiguous(), wo.contiguous(),
-                            max_words=max_words)
-
-
 def _analyze_planes(data, lengths, *, n, parse_seg, ctx_words, probes,
                     search_seg, search_overlap):
     """(ml, dist, taken, lit) of the level-1 parse, as both packers
@@ -208,9 +170,10 @@ def deflate_pack_device(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
     ml, dist, taken, lit = _analyze_planes(
         data, lengths, n=n, parse_seg=parse_seg, ctx_words=ctx_words,
         probes=probes, search_seg=search_seg, search_overlap=search_overlap)
-    bits, nbits = static_emissions(data, ml, dist, taken, lit)
-    off, end = _offsets(nbits, HDR_BITS)
-    out = _group_pack_assemble(bits, nbits, off, max_words, GROUP_W)
+    base = torch.full((data.shape[0],), HDR_BITS, dtype=torch.int32,
+                      device=data.device)
+    out, end = pack_rows(ml, dist, taken, lit, base, max_words=max_words,
+                         data=data)
     # block header bits [0, 3): BFINAL=0, BTYPE=01 -> LSB-first 0b010;
     # emissions start at bit 3, so the OR touches no emitted bit
     out[:, 0] |= 0b010
@@ -280,6 +243,124 @@ def dynamic_emissions(ml, dist, taken, lit, lpack, dpack):
     return bits, nbits
 
 
+# ---------------------------------------------------------------------------
+# The row bit-packer: TPU kernel k1 and the stages that fed it
+# ---------------------------------------------------------------------------
+
+#: shared memory one CTA may opt in to on the H100 (227 KB)
+MAX_SMEM = 232448
+#: what ``pack_rows`` keeps in shared memory beside its row image: up to
+#: three words of alignment shift and the per-warp bit counts
+PACK_ROWS_SMEM_EXTRA = 3 * 4 + 2 * 16 * 4
+
+
+def _mode_planes(data, lpack, dpack):
+    """The planes that select the mode: static when ``data`` is given,
+    dynamic when ``lpack`` and ``dpack`` are."""
+    if (data is None) == (lpack is None) or (lpack is None) != (dpack is None):
+        raise ValueError("pack_rows takes data (static) or lpack and dpack "
+                         "(dynamic)")
+    if data is not None:
+        return [(data, "data", torch.uint8)]
+    return [(lpack, "lpack", torch.int32), (dpack, "dpack", torch.int32)]
+
+
+def pack_rows_ref(ml, dist, taken, lit, base, *, max_words: int, data=None,
+                  lpack=None, dpack=None):
+    """Plain version of :func:`pack_rows` (same arguments): the emission
+    planes, their exclusive offsets, and one int64 ``scatter_add_`` of
+    every emission's low and high word parts straight into the row (the
+    bits two emissions give one word are disjoint, so add equals OR);
+    words at or past ``max_words`` go to a spare column that is dropped."""
+    _mode_planes(data, lpack, dpack)
+    if data is not None:
+        bits, nbits = static_emissions(data, ml, dist, taken, lit)
+    else:
+        bits, nbits = dynamic_emissions(ml, dist, taken, lit, lpack, dpack)
+    off, end = _offsets(nbits, base.to(torch.int64)[:, None])
+    s = off & 31
+    lo = (bits << s) & 0xFFFFFFFF
+    hi = (bits >> 1) >> (31 - s)             # unsigned; safe for s == 0
+    word = off >> 5
+    out = torch.zeros((ml.shape[0], max_words + 1), dtype=torch.int64,
+                      device=ml.device)
+    out.scatter_add_(1, torch.cat([word, word + 1], 1).clamp_(max=max_words),
+                     torch.cat([lo, hi], 1))
+    return _as_i32(out[:, :max_words]), end.to(torch.int32)
+
+
+def pack_rows(ml, dist, taken, lit, base, *, max_words: int, data=None,
+              lpack=None, dpack=None):
+    """Every position's emission, packed into its row's deflate words.
+
+    Static Huffman when ``data`` is given (as :func:`static_emissions`
+    emits), dynamic when ``lpack`` and ``dpack`` are (as
+    :func:`dynamic_emissions` emits: a match's distance part at p + 1).
+    Each emission is ORed into the row at its exclusive bit offset from
+    the row's ``base``.
+
+    Args:
+      ml, dist: (B, n) int32 match length and distance.
+      taken, lit: (B, n) bool — a match token starts at p / p emits a
+            literal.
+      base: (B,) int32 bit at which each row's first emission starts.
+      max_words: words per output row; words at or past it are dropped.
+      data: (B, n) uint8 bytes (static).
+      lpack, dpack: (B, n) int32 lit/len and distance table entries
+            ``code | len << 12`` per position, as ``huffman_lookup``
+            gives them (dynamic).
+    Returns:
+      (words (B, max_words) int32 bit patterns, zero past the stream; end
+      (B,) int32 bit where each row's stream ends).
+
+    The planes are ones a parse gives: ``taken`` and ``lit`` are
+    disjoint, no ``taken`` or ``lit`` lies inside a taken match, ``ml`` is
+    4-258 and ``dist`` 1-32768 where taken, and each table entry's code
+    fits its length (<= 15). Every emission then fits 32 bits (static at
+    most 9 bits a literal and 31 a match; dynamic at most 12 a literal,
+    17 a length part and 25 a distance part), and no 256-position group
+    of the TPU's route ever outgrows its window (``GROUP_W`` 74 /
+    ``DYN_GROUP_W`` 99 words), so the result equals that route's.
+
+    On the card the kernel holds a row in shared memory, so
+    ``max_words`` is at most ``(MAX_SMEM - PACK_ROWS_SMEM_EXTRA) // 4``.
+    """
+    b, n = ml.shape
+    planes = [(ml, "ml", torch.int32), (dist, "dist", torch.int32),
+              (taken, "taken", torch.bool), (lit, "lit", torch.bool)]
+    for t, what, dtype in planes + _mode_planes(data, lpack, dpack):
+        if tuple(t.shape) != (b, n):
+            raise ValueError(f"{what} shape {tuple(t.shape)} != {(b, n)}")
+        _require(t, what, dtype, ml.device)
+    if tuple(base.shape) != (b,):
+        raise ValueError(f"base shape {tuple(base.shape)} != {(b,)}")
+    _require(base, "base", torch.int32, ml.device)
+    if max_words < 1:
+        raise ValueError(f"max_words {max_words} must be positive")
+    if ml.device.type == "cpu":
+        return pack_rows_ref(ml, dist, taken, lit, base, max_words=max_words,
+                             data=data, lpack=lpack, dpack=dpack)
+    if ml.device.type != "cuda":
+        raise ValueError(f"unsupported device {ml.device}")
+    if max_words * 4 + PACK_ROWS_SMEM_EXTRA > MAX_SMEM:
+        raise ValueError(f"a row of {max_words} words does not fit the "
+                         f"{MAX_SMEM} bytes of shared memory of one CTA")
+    words = torch.empty((b, max_words), dtype=torch.int32, device=ml.device)
+    end = torch.empty((b,), dtype=torch.int32, device=ml.device)
+    if b == 0:
+        return words, end
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    rc = kernels().qz_pack_rows(
+        ptr(data), ml.data_ptr(), dist.data_ptr(), taken.data_ptr(),
+        lit.data_ptr(), ptr(lpack), ptr(dpack), base.data_ptr(),
+        words.data_ptr(), end.data_ptr(), b, n, max_words, _stream())
+    _check("pack_rows", rc)
+    LAUNCHES["pack_rows"] += 1
+    return words, end
+
+
 def deflate_pack_dynamic(data: torch.Tensor, ml, dist, taken, lit,
                          lit_pack: torch.Tensor, dist_pack: torch.Tensor,
                          hdr_bits: torch.Tensor, *, n: int,
@@ -295,10 +376,8 @@ def deflate_pack_dynamic(data: torch.Tensor, ml, dist, taken, lit,
         max_words = (n * DYN_LIMIT + 4096 + 31) // 32 + 2
     sym, dsym = lookup_symbols(data, ml, dist, taken, lit)
     lpack, dpack = huffman_lookup(lit_pack, dist_pack, sym, dsym)
-    bits, nbits = dynamic_emissions(ml, dist, taken, lit, lpack, dpack)
-    off, end = _offsets(nbits, hdr_bits.to(torch.int64)[:, None])
-    out = _group_pack_assemble(bits, nbits, off, max_words, DYN_GROUP_W)
-    return out, end.to(torch.int32)
+    return pack_rows(ml, dist, taken, lit, hdr_bits.to(torch.int32),
+                     max_words=max_words, lpack=lpack, dpack=dpack)
 
 
 # ---------------------------------------------------------------------------

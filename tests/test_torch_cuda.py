@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from qatzip_tpu_torch.ops import cuda_pack
+from qatzip_tpu_torch.ops import deflate_pack as dp
+from qatzip_tpu_torch.parallel.dispatch import _tok_knobs, plan_tile
 
 pytestmark = pytest.mark.cuda
 
@@ -210,44 +212,167 @@ def test_wrapper_rejects_host_and_device_mix(card):
                                  sym.to(card))
     with pytest.raises(ValueError):
         cuda_pack.symbol_histogram(sym.to(card), sym)
+    planes = pack_plane("far-4", 1, 512)
+    args, kw, _plan = pack_args("far-4", planes, True)
     with pytest.raises(ValueError):
-        cuda_pack.assemble_windows(torch.zeros((1, 2, 74), dtype=torch.int32),
-                                   torch.zeros((1, 2), dtype=torch.int32).to(
-                                       card), max_words=100)
+        dp.pack_rows(*[a.to(card) for a in args], max_words=300,
+                     lpack=kw["lpack"], dpack=kw["dpack"].to(card))
 
 
-def _k1_inputs(b, n, w, seed):
-    """Windows as the packers give them, one per 256 positions: window g
-    writes span[g] < w words and the next one starts at its last word,
-    which the two share with disjoint bits (the low half to g, the high
-    half to g + 1)."""
+PACK_PLANES = ("literal-144", "far-4", "run-258")
+
+
+def pack_plane(kind, b, n, seed=0):
+    """(data, ml, dist, taken, lit) numpy planes of shape (b, n), ones a
+    parse can give, that are hard for the row bit-packer:
+
+      literal-144: every position a literal of a byte 152-160: 9-bit static
+                   codes, and 10-12-bit dynamic ones under
+                   :func:`pack_tables`;
+      far-4:       back-to-back 4-byte matches at distance 32768, the
+                   widest distance parts (25 of a static match's bits),
+                   straddling word boundaries throughout;
+      run-258:     a literal, then matches of 258 at distance 1, literals
+                   to the row's end; the last row ends at n // 3, its
+                   planes empty past it.
+    """
     rng = np.random.default_rng(seed)
-    ng = n // 256
-    span = rng.integers(1, w, (b, ng))
-    wo = np.zeros((b, ng), np.int64)
-    wo[:, 1:] = np.cumsum(span - 1, axis=1)[:, :-1]
-    j = np.arange(w)
-    grp = rng.integers(0, 1 << 32, (b, ng, w), dtype=np.uint64)
-    grp = np.where(j < span[:, :, None], grp, 0)
-    grp[:, :, 0] &= 0xFFFF0000
-    last = (span - 1)[:, :, None]
-    np.put_along_axis(grp, last,
-                      np.take_along_axis(grp, last, 2) & 0xFFFF, 2)
-    return (torch.from_numpy(grp.astype(np.uint32).view(np.int32)),
-            torch.from_numpy(wo.astype(np.int32)))
+    data = rng.integers(0, 256, (b, n)).astype(np.uint8)
+    ml = np.zeros((b, n), np.int32)
+    dist = np.ones((b, n), np.int32)
+    taken = np.zeros((b, n), bool)
+    lit = np.zeros((b, n), bool)
+    if kind == "literal-144":
+        data = rng.integers(152, 161, (b, n)).astype(np.uint8)
+        lit[:] = True
+    elif kind == "far-4":
+        taken[:, ::4] = True
+        ml[taken], dist[taken] = 4, 32768
+    elif kind == "run-258":
+        for r in range(b):
+            end = n // 3 if r == b - 1 else n
+            runs = (end - 1) // 258
+            starts = 1 + 258 * np.arange(runs)
+            taken[r, starts], ml[r, starts] = True, 258
+            lit[r, 0] = True
+            lit[r, 1 + 258 * runs:end] = True
+    else:
+        raise ValueError(kind)
+    return data, ml, dist, taken, lit
 
 
-@pytest.mark.parametrize("b,n,w,max_words", [
-    (4, 65536, 99, 24706), (4, 65536, 74, 18435), (3, 2048, 74, 200)])
-def test_assemble_windows_kernel_matches_ref(card, b, n, w, max_words):
-    grp, wo = _k1_inputs(b, n, w, seed=n + w)
-    want = cuda_pack.assemble_windows_ref(grp, wo, max_words=max_words)
-    before = cuda_pack.LAUNCHES["assemble_windows"]
-    got = cuda_pack.assemble_windows(grp.to(card), wo.to(card),
-                                     max_words=max_words)
+def pack_tables(kind, data, ml, dist, taken, lit):
+    """Each row's dynamic plan (lit_pack, dist_pack, header bytes, header
+    bits) from its own symbol counts; for "literal-144" from counts 2^16,
+    2^15, ..., 1 on symbols 144-160 instead, whose last seven codes take
+    the 12-bit limit."""
+    t = torch.from_numpy
+    hist = cuda_pack.symbol_histogram(*dp.hist_symbols(
+        t(data), t(ml), t(dist), t(taken), t(lit))).numpy()
+    if kind == "literal-144":
+        hist[:] = 0
+        hist[:, 144:161] = 1 << (16 - np.arange(17))
+    return plan_tile(hist, len(hist))
+
+
+def pack_args(kind, planes, dynamic):
+    """pack_rows' arguments (CPU tensors) for the planes: (ml, dist,
+    taken, lit, base), the mode's keywords, and the dynamic plan (None
+    for static)."""
+    data, ml, dist, taken, lit = planes
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (ml, dist, taken, lit)]
+    if not dynamic:
+        base = torch.full((len(data),), dp.HDR_BITS, dtype=torch.int32)
+        return args + [base], {"data": torch.from_numpy(data)}, None
+    plan = pack_tables(kind, *planes)
+    packs, dpacks, _hdrs, hbits = plan
+    lpack, dpack = cuda_pack.huffman_lookup(
+        torch.from_numpy(packs.astype(np.int32)),
+        torch.from_numpy(dpacks.astype(np.int32)),
+        *dp.lookup_symbols(torch.from_numpy(data), *args))
+    return (args + [torch.from_numpy(hbits)],
+            {"lpack": lpack, "dpack": dpack}, plan)
+
+
+def _max_words(n, dynamic):
+    if dynamic:
+        return (n * dp.DYN_LIMIT + 4096 + 31) // 32 + 2
+    return (n * 9 + dp.HDR_BITS + dp.EOB_BITS + 31) // 32 + 2
+
+
+def _real_planes(card, b, n):
+    """The port's level-1 parse planes of corpus rows, on the card."""
+    from corpus import make_silesia_like   # tests/ is on sys.path
+    data = np.frombuffer(make_silesia_like(b * n >> 20 or 1)[:b * n],
+                         np.uint8).reshape(b, n).copy()
+    ss, ov, _cs, ctx_words, probes = _tok_knobs(1, n)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=card)
+    planes = dp._analyze_planes(torch.from_numpy(data).to(card), lengths,
+                                n=n, parse_seg=8192, ctx_words=ctx_words,
+                                probes=probes, search_seg=ss,
+                                search_overlap=ov)
+    return (data,) + tuple(p.cpu().numpy() for p in planes)
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("kind,n", [("real", 65536), ("real", 2048),
+                                    *[(k, 65536) for k in PACK_PLANES],
+                                    ("run-258", 2048)])
+def test_pack_rows_kernel_matches_ref(card, kind, n, dynamic):
+    planes = (_real_planes(card, 4, n) if kind == "real"
+              else pack_plane(kind, 4, n, seed=n))
+    args, kw, _plan = pack_args(kind, planes, dynamic)
+    max_words = _max_words(n, dynamic)
+    want = dp.pack_rows_ref(*args, max_words=max_words, **kw)
+    before = cuda_pack.LAUNCHES["pack_rows"]
+    got = dp.pack_rows(*[a.to(card) for a in args], max_words=max_words,
+                       **{k: v.to(card) for k, v in kw.items()})
     torch.cuda.synchronize()
-    assert cuda_pack.LAUNCHES["assemble_windows"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    assert cuda_pack.LAUNCHES["pack_rows"] == before + 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert want[0].any()
+
+
+def test_pack_rows_kernel_scalar_path_and_short_rows(card):
+    """Rows whose length is not a multiple of 4 and planes off a 16-byte
+    boundary take the kernel's scalar loads; max_words cuts a row short."""
+    for dynamic in (False, True):
+        planes = pack_plane("run-258", 3, 1001, seed=5)
+        args, kw, _plan = pack_args("run-258", planes, dynamic)
+        for max_words in (_max_words(1001, dynamic), 37):
+            want = dp.pack_rows_ref(*args, max_words=max_words, **kw)
+            got = dp.pack_rows(*[a.to(card) for a in args],
+                               max_words=max_words,
+                               **{k: v.to(card) for k, v in kw.items()})
+            torch.cuda.synchronize()
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        # the planes one element into a buffer on the card
+        moved = []
+        for a in [*args[:4], *kw.values()]:
+            flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=card)
+            flat[1:] = a.reshape(-1).to(card)
+            moved.append(flat[1:].reshape(a.shape))
+        max_words = _max_words(1001, dynamic)
+        want = dp.pack_rows_ref(*args, max_words=max_words, **kw)
+        got = dp.pack_rows(*moved[:4], args[4].to(card), max_words=max_words,
+                           **dict(zip(kw, moved[4:])))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_pack_rows_refuses_what_the_kernel_does_not_take(card):
+    planes = pack_plane("run-258", 2, 2048)
+    args, kw, _plan = pack_args("run-258", planes, False)
+    on_card = [a.to(card) for a in args]
+    with pytest.raises(ValueError):          # one plane left on the host
+        dp.pack_rows(*on_card[:3], args[3], on_card[4], max_words=600,
+                     data=kw["data"].to(card))
+    with pytest.raises(ValueError):          # a row past shared memory
+        dp.pack_rows(*on_card, max_words=dp.MAX_SMEM // 4,
+                     data=kw["data"].to(card))
+    with pytest.raises(ValueError):          # no mode
+        dp.pack_rows(*on_card, max_words=600)
 
 
 @pytest.mark.parametrize("b,n", [(4, 65536), (3, 1000), (2, 4096)])

@@ -6,24 +6,31 @@ tolerance is 0 throughout:
 
   * the symbol and emission functions over every match length, a spread
     of distances and every byte;
-  * the plain versions of k1 ``assemble_windows``, k3 ``huffman_lookup``
-    and k4 ``symbol_histogram`` against the TPU kernels in Pallas
-    interpret mode, as tests/test_pallas_kernels.py runs them;
+  * the plain versions of k3 ``huffman_lookup`` and k4
+    ``symbol_histogram`` against the TPU kernels in Pallas interpret mode,
+    as tests/test_pallas_kernels.py runs them;
+  * the row bit-packer's plain version ``pack_rows_ref`` against the JAX
+    package's route through TPU kernel k1 (its emission functions, a
+    cumsum, the group pack and k1 in interpret mode), static and dynamic,
+    on real parse planes and on planes hard for the packer; stock zlib
+    inflates every row;
   * the static packer, and the dynamic packer's two passes with the host
     tree build between them, against the JAX package's ``pallas="scatter"``
     route, words and bit counts; stock zlib decodes every stream;
   * a match at distance 20000 whose static emission takes 31 bits, packed
     from hand-made planes, against the JAX packers.
 
-Two row shapes only (JAX-CPU compiles each packer once per shape).
+Few row shapes (JAX-CPU compiles each route once per shape).
 """
 
+import functools
 import zlib
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from qatzip_tpu.ops import deflate_pack as jdp
@@ -31,6 +38,7 @@ from qatzip_tpu.ops import pallas_pack as jpk
 from qatzip_tpu_torch.ops import cuda_pack
 from qatzip_tpu_torch.ops import deflate_pack as dp
 from qatzip_tpu_torch.parallel.dispatch import plan_tile
+from test_torch_cuda import PACK_PLANES, _max_words, pack_args, pack_plane
 
 N = 2048
 
@@ -105,42 +113,6 @@ def test_symbol_and_emission_functions_match_jax():
 # the kernels' plain versions against the TPU kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-def _k1_inputs(b, ng, w, max_words, seed):
-    """Windows at sorted offsets whose overlapping words carry disjoint
-    bits (each bit of the row image belongs to one covering window), some
-    reaching past max_words."""
-    rng = np.random.default_rng(seed)
-    wo = np.sort(rng.integers(0, max_words - 8, (b, ng)), axis=1)
-    wo[:, 0] = 0
-    grp = np.zeros((b, ng, w), np.uint32)
-    for r in range(b):
-        img = rng.integers(0, 1 << 32, max_words + w, dtype=np.uint64)
-        for x in range(max_words + w):
-            cover = np.nonzero((wo[r] <= x) & (x < wo[r] + w))[0]
-            if not len(cover):
-                continue
-            owner = rng.choice(cover, 32)
-            for g in cover:
-                mask = sum(1 << k for k in range(32) if owner[k] == g)
-                grp[r, g, x - wo[r, g]] = int(img[x]) & mask
-    return grp, wo.astype(np.int32)
-
-
-@pytest.mark.parametrize("w", [dp.GROUP_W, dp.DYN_GROUP_W])
-def test_assemble_windows_ref_matches_k1(w):
-    max_words = 600
-    grp, wo = _k1_inputs(3, 9, w, max_words, seed=w)
-    assert (grp >= 1 << 31).any() and (wo[:, -1] + w > max_words).any()
-    want = np.asarray(jpk.assemble_windows(
-        jnp.asarray(grp), jnp.asarray(wo), max_words=max_words,
-        interpret=True))
-    got = cuda_pack.assemble_windows(_t(grp.view(np.int32)), _t(wo),
-                                     max_words=max_words)
-    assert np.array_equal(_u32(got), want)
-    assert np.array_equal(_u32(cuda_pack.assemble_windows_ref(
-        _t(grp.view(np.int32)), _t(wo), max_words=max_words)), want)
-
-
 def test_huffman_lookup_ref_matches_k3():
     rng = np.random.default_rng(3)
     b, n = 3, 1024
@@ -189,6 +161,114 @@ def test_symbol_histogram_takes_any_row_length():
         np.add.at(want[r], d, 1)
     got = cuda_pack.symbol_histogram(_t(sym), _t(dsym))
     assert np.array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the row bit-packer against the JAX package's route through k1
+# ---------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnames=("max_words",))
+def _jax_static_route(data, ml, dist, taken, lit, base, *, max_words):
+    """The JAX static packer's stages after the parse, k1 interpreted."""
+    mv, mn = jdp._match_emission(ml, dist)
+    lv, ln = jdp._lit_emission(data)
+    bits = jnp.where(taken, mv, jnp.where(lit, lv, jnp.uint32(0)))
+    nbits = jnp.where(taken, mn, jnp.where(lit, ln, 0))
+    csum = jnp.cumsum(nbits, axis=1, dtype=jnp.int32)
+    b, n = data.shape
+    words = jdp._group_pack_assemble(bits, nbits, base[:, None] + csum - nbits,
+                                     b, n, max_words, group_w=jdp.GROUP_W,
+                                     pallas="interpret")
+    return words, base + csum[:, -1]
+
+
+@pytest.fixture(scope="module")
+def batch_planes(batch):
+    """The batch's level-1 parse planes, as numpy (data, ml, dist, taken,
+    lit)."""
+    data, lengths, _rows = batch
+    planes = dp._analyze_planes(_t(data), _t(lengths), n=N, parse_seg=8192,
+                                ctx_words=4, probes=6, search_seg=0,
+                                search_overlap=1024)
+    return (data,) + tuple(p.numpy() for p in planes)
+
+
+def _expand(planes, r, zdict: bytes) -> bytes:
+    """Row r of the planes decoded by hand, after the dictionary."""
+    data, ml, dist, taken, lit = (a[r] for a in planes)
+    out = bytearray(zdict)
+    for p in np.nonzero(taken | lit)[0]:
+        if taken[p]:
+            for _ in range(ml[p]):
+                out.append(out[-int(dist[p])])
+        else:
+            out.append(data[p])
+    return bytes(out[len(zdict):])
+
+
+def _dyn_prefix(hdr: bytes, hbits: int, base: int) -> bytes:
+    """The bits before the emissions of a final dynamic block whose header
+    takes ``hbits`` and whose emissions start at ``base``: (base - hbits)
+    / 10 empty static blocks (BTYPE 01, then the 7-bit EOB), then the
+    header with BFINAL set."""
+    k, rest = divmod(base - hbits, 10)
+    assert rest == 0
+    v = sum(1 << (10 * i + 1) for i in range(k))
+    v |= (int.from_bytes(hdr, "little") | 1) << (10 * k)
+    return v.to_bytes((base + 7) // 8, "little")
+
+
+PACK_CASES = [(mode, kind) for kind in ("batch", *PACK_PLANES)
+              for mode in ("static", "dynamic")] + [("dynamic", "base-2300")]
+
+
+@pytest.mark.parametrize("mode,kind", PACK_CASES,
+                         ids=[f"{m}-{k}" for m, k in PACK_CASES])
+def test_pack_rows_ref_matches_jax_k1_route(batch_planes, mode, kind):
+    dynamic = mode == "dynamic"
+    planes = (batch_planes if kind in ("batch", "base-2300")
+              else pack_plane(kind, 4, N, seed=11))
+    args, kw, plan = pack_args(kind, planes, dynamic)
+    max_words = _max_words(N, dynamic)
+    if kind == "base-2300":
+        # emissions from ~2300 bits on: empty static blocks fill the gap
+        hbits = args[4].numpy()
+        args[4] = _t(hbits + (2300 - hbits) // 10 * 10)
+    words, end = dp.pack_rows_ref(*args, max_words=max_words, **kw)
+    again = dp.pack_rows(*args, max_words=max_words, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, (words, end)))
+
+    data, ml, dist, taken, lit = (jnp.asarray(a) for a in planes)
+    base = jnp.asarray(args[4].numpy())
+    if dynamic:
+        packs, dpacks, hdrs, _hbits = plan
+        jw, jend = jdp.deflate_pack_dynamic(
+            data, ml, dist, taken, lit, jnp.asarray(packs.astype(np.uint32)),
+            jnp.asarray(dpacks.astype(np.uint32)), base, n=N,
+            pallas="interpret")
+    else:
+        jw, jend = _jax_static_route(data, ml, dist, taken, lit, base,
+                                     max_words=max_words)
+    assert np.array_equal(_u32(words), np.asarray(jw))
+    assert np.array_equal(end.numpy(), np.asarray(jend))
+
+    rng = np.random.default_rng(1)
+    zdict = rng.integers(0, 256, 32768, dtype=np.uint8).tobytes()
+    w = _u32(words).copy()
+    for r in range(len(w)):
+        if dynamic:
+            packs, _dpacks, hdrs, hbits = plan
+            stream = dp.finish_stream_dynamic(
+                w[r], int(end[r]), _dyn_prefix(hdrs[r], int(hbits[r]),
+                                               int(args[4][r])),
+                int(packs[r][256]), final=False)
+        else:
+            w[r, 0] |= 0b010
+            stream = dp.finish_stream(w[r], int(end[r]) + dp.EOB_BITS,
+                                      final=True)
+        d = zlib.decompressobj(-15, zdict=zdict)
+        assert d.decompress(stream) == _expand(planes, r, zdict)
+        assert d.eof
 
 
 # ---------------------------------------------------------------------------
@@ -259,18 +339,20 @@ def test_far_distance_full_width_emission_matches_jax():
     lit[0, 20000:20220] = False
     want_row = base[0].tobytes()
 
-    # static: emission planes, offsets, group pack and k1 assembly
+    # static: the row bit-packer, against the JAX group pack and assembly
     bits, nbits = dp.static_emissions(_t(base), _t(ml), _t(dist), _t(taken),
                                       _t(lit))
     assert int(nbits[0, 20000]) == 31
     off, end = dp._offsets(nbits, dp.HDR_BITS)
     max_words = (n * 9 + dp.HDR_BITS + dp.EOB_BITS + 31) // 32 + 2
-    w = dp._group_pack_assemble(bits, nbits, off, max_words, dp.GROUP_W)
+    w, end = dp.pack_rows(_t(ml), _t(dist), _t(taken), _t(lit),
+                          torch.full((1,), dp.HDR_BITS, dtype=torch.int32),
+                          max_words=max_words, data=_t(base))
     jbits = jnp.asarray(bits.numpy().astype(np.uint32))
     jnb = jnp.asarray(nbits.numpy().astype(np.int32))
     jw = np.asarray(jdp._group_pack_assemble(
         jbits, jnb, jnp.asarray(off.numpy().astype(np.int32)), 1, n,
-        max_words, group_w=dp.GROUP_W, pallas="scatter"))
+        max_words, group_w=jdp.GROUP_W, pallas="scatter"))
     assert np.array_equal(_u32(w), jw)
     words = _u32(w).copy()
     words[0, 0] |= 0b010
