@@ -21,16 +21,27 @@ exits non-zero without the final line:
      route it replaced (emission planes, offsets, the 256-position group
      pack and the window assembly, in plain torch), bit-identical, with
      that route's time;
+     the LZ4 byte packer on the LZ4 device pack's own planes of that tile
+     (the full-row search's parse, timed apart) against its plain version
+     and against the torch route it stands for (the JAX package's run
+     planes, emission planes, cumsum and 256-position group pack), and on
+     adversarial planes (b"A" * n: back-to-back 273-matches with their
+     own tokens; literal runs of exactly 269, 270 and 271, a length that
+     is not a multiple of 4, an empty row);
   4. the device time of the tokenizer layer on the full tiles, then the
-     three paths, each a 64 MiB request through QzSession(device="cuda")
-     with the launch counts set to 0 just before and read just after:
-     the dynamic and the static full-device pack (the engine's own
-     choice for dynamic and static sessions on the card) and the token
-     path (the engine held on it: the route a dynamic session takes on
-     the CPU, measured here against the device pack). Every member
-     decodes with stock zlib, the session decodes the whole, a second
-     compress gives the same bytes, and every kernel of the path was
-     launched; the path line gives the peak device memory of the two
+     paths, each a 64 MiB request through QzSession(device="cuda") with
+     the launch counts set to 0 just before and read just after: the
+     dynamic and the static full-device pack (the engine's own choice for
+     dynamic and static sessions on the card), the token path (the engine
+     held on it: the route a dynamic session takes on the CPU), LZ4 on the
+     token path and on the LZ4 device pack (each held there; the line
+     names the engine's own pick), LZ4s through the lz4s -> zstd callback,
+     and level 6 on the dynamic device pack (the full-row search). Every
+     deflate member decodes with stock zlib, every LZ4 frame with the
+     session and the blocks of its first 1 MiB with the pure-Python LZ4
+     decoder, the zstd frames with libzstd; the session decodes the whole,
+     a second compress gives the same bytes, and every kernel of the path
+     was launched; the path line gives the peak device memory of the two
      compresses. Then each path's breakdown and a profile of one compress;
   5. the first 1 MiB through device="cpu" and device="cuda" on each
      path, both engines held on it: same bytes;
@@ -53,19 +64,30 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside the tensor cores
 
-# (path, session static?, route on the card: None = the engine's own
-#  choice, False = the engine held on the token path; kernels it runs)
+# (path, session kind, level, route on the card: None = the engine's own
+#  choice, False / True = the engine held on the token path / the device
+#  pack; the kernels it runs). Kinds: "dynamic" and "static" deflate,
+#  "lz4", and "lz4s-zstd" (an LZ4s session with the zstd callback).
 PATHS = [
-    ("token", False, False, ("candidate_search", "parse_scan")),
-    ("static-device-pack", True, None,
+    ("token", "dynamic", 1, False, ("candidate_search", "parse_scan")),
+    ("static-device-pack", "static", 1, None,
      ("candidate_search", "parse_scan", "pack_rows")),
-    ("dynamic-device-pack", False, None,
+    ("dynamic-device-pack", "dynamic", 1, None,
      ("candidate_search", "parse_scan", "symbol_histogram",
       "huffman_lookup", "pack_rows")),
+    ("lz4-token", "lz4", 1, False, ("candidate_search", "parse_scan")),
+    ("lz4-device-pack", "lz4", 1, True, ("parse_scan", "lz4_pack_rows")),
+    ("lz4s-zstd", "lz4s-zstd", 1, None, ("candidate_search", "parse_scan")),
+    ("level6-dynamic-device-pack", "dynamic", 6, None,
+     ("parse_scan", "symbol_histogram", "huffman_lookup", "pack_rows")),
 ]
 # the path whose launches the kernel summary reports: the default
-# (dynamic) session on the card, which runs all five kernels
+# (dynamic) session on the card, which runs five kernels; the LZ4 byte
+# packer's launches come from the LZ4 device pack's path
 MAIN_PATH = "dynamic-device-pack"
+HOME_PATH = {"lz4_pack_rows": "lz4-device-pack"}
+# the paths that search whole 64 KiB rows (the full-row search)
+FULL_ROW_PATHS = ("lz4-device-pack", "level6-dynamic-device-pack")
 
 
 def check(cond, msg: str) -> None:
@@ -194,6 +216,50 @@ def pr3_route(emit, base, max_words: int, group_w: int):
     return _as_i32(out[:, :max_words]), end.to(torch.int32)
 
 
+def lz4_route(data, ml, dist, taken, lit, max_words: int):
+    """The torch route the LZ4 byte packer stands for, as the JAX package
+    ran it: the run planes, the emission planes, their offsets, the
+    256-position group pack into LZ4_GROUP_W words and the assembly, in
+    plain torch. Returns (words, nbytes, ok); words of rows that are not
+    ok are not comparable (the port zeroes them). A yardstick for
+    ``lz4_pack_rows``; the port does not use it."""
+    import torch
+    from qatzip_tpu_torch.ops import lz4_pack as lp
+    lr, nm = lp.run_planes(ml, taken, lit)
+
+    def emit():
+        vals, nbs = lp.lz4_emissions(data, ml, dist, taken, lit, lr, nm)
+        return vals, nbs * 8
+    zero = torch.zeros((ml.shape[0], 1), dtype=torch.int64, device=ml.device)
+    words, end = pr3_route(emit, zero, max_words, lp.LZ4_GROUP_W)
+    return words, end // 8, lr.max(dim=1).values <= lp.LZ4_MAX_RUN
+
+
+def lz4_adversarial(n: int, kind: str, rows: int):
+    """(data (rows, n) uint8, lengths) of planes hard for the LZ4 byte
+    packer: "A" = b"A" * n in every row; "runs" = rows cycling through a
+    literal run of exactly 269, 270 and 271 literals (random bytes from a
+    seed, then one byte repeated), text whose length is not a multiple of
+    4 (n - 3), and an empty row."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    if kind == "A":
+        kinds = [b"A" * n]
+    else:
+        kinds = [bytes(rng.integers(0, 256, run - 1, dtype=np.uint8))
+                 + b"x" * (n - run + 1) for run in (269, 270, 271)]
+        text = (b"the port packs each run start with its length bytes; "
+                * (n // 50 + 1))
+        kinds += [text[:n - 3], b""]
+    data = np.zeros((rows, n), np.uint8)
+    lengths = np.zeros(rows, np.int32)
+    for i in range(rows):
+        r = kinds[i % len(kinds)]
+        data[i, :len(r)] = np.frombuffer(r, np.uint8)
+        lengths[i] = len(r)
+    return data, lengths
+
+
 def gunzip_members(blob: bytes):
     """Stock zlib over concatenated gzip members (wbits 31)."""
     out, rest, members = [], blob, 0
@@ -213,11 +279,15 @@ def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device: torch.cuda is not "
           "available")
     import qatzip_tpu_torch as qz
-    from qatzip_tpu_torch import native
+    from qatzip_tpu_torch import native, postproc
     from qatzip_tpu_torch.ops import _build, cuda_pack, lz77
     from qatzip_tpu_torch.ops import deflate_pack as dp
+    from qatzip_tpu_torch.ops import lz4_pack as lp
     from qatzip_tpu_torch.parallel import dispatch
     from qatzip_tpu_torch.parallel.dispatch import TILE_B, _tok_knobs, plan_tile
+    from qatzip_tpu_torch.formats.lz4_format import (parse_lz4_frame_header,
+                                                     walk_lz4_blocks)
+    from qatzip_tpu_torch.sw.lz4_py import lz4_decompress_block_py
     # by path: a package named "tests" installed elsewhere may shadow ours
     spec = importlib.util.spec_from_file_location("qz_corpus", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "tests", "corpus.py"))
@@ -231,7 +301,7 @@ def main() -> None:
         (False); None gives the engines their own choice back."""
         dispatch.CudaEngine.packs_on_device = (
             own_route if device_pack is None
-            else lambda self, static: device_pack)
+            else lambda self, static, algorithm="deflate": device_pack)
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -247,6 +317,10 @@ def main() -> None:
     t1 = time.perf_counter()
     native.get_lib()
     t2 = time.perf_counter()
+    lib = native.get_lib()
+    check(lib.has_zstd, "the native library reaches no zstd >= 1.5 "
+          f"(version {lib.zstd_version}): the lz4s -> zstd path needs "
+          "libzstd.so.1")
     # the same kernels in one nvcc command, timed and thrown away
     srcs = sorted(glob.glob(os.path.join(_build.CSRC_DIR, "*.cu")))
     one = os.path.join(_build.BUILD_DIR, "one_command_build.so")
@@ -261,7 +335,7 @@ def main() -> None:
           f"a link; built this run: "
           f"{_build.BUILD_SECONDS['qztorch_kernels'] > 0}), native "
           f"{t2 - t1:.2f} s; one nvcc over all {len(srcs)} kernel sources "
-          f"{one_s:.2f} s")
+          f"{one_s:.2f} s; native linked with zstd {lib.zstd_version}")
     for ln in _build.BUILD_LOGS.get("qztorch_kernels", "").splitlines():
         if "Used" in ln or "Compiling entry" in ln:
             print("build: ptxas", ln.strip())
@@ -518,7 +592,77 @@ def main() -> None:
     del lpack, dpack, ml, dist, taken, lit, hist, planes
     torch.cuda.empty_cache()
 
-    # -- 4. the tokenizer layer, then the three paths ---------------------------------
+    # the LZ4 device pack's planes of the same tile: the full-row search
+    # (the level >= 6 knobs, timed apart), then the LZ4 parse
+    full_row_ms = event_ms(lambda: lz77._full_row_search(
+        tile, lengths, n=n, min_match=4, window=32768, ctx_words=4,
+        probes=6), 3)
+    print(f"layer full-row search: device time of the candidate search over "
+          f"whole rows, ({TILE_B}, {n}), CUDA events: {full_row_ms:.3f} ms a "
+          f"tile")
+    mw_lz4 = lp.lz4_max_words(n)
+
+    def lz4_check(label, planes, adversarial_plane=None):
+        """The LZ4 byte packer on ``planes`` against its plain version and
+        the torch route it stands for (nbytes and ok on every row, words
+        on ok rows); recorded, or kept as an adversarial plane."""
+        got = lp.lz4_pack_rows(*planes, max_words=mw_lz4)
+        err = max_err(got, lp.lz4_pack_rows_ref(*planes, max_words=mw_lz4))
+        old = lz4_route(*planes, mw_lz4)
+        ok = got[2]
+        check(torch.equal(got[1], old[1]) and torch.equal(ok, old[2])
+              and torch.equal(got[0][ok], old[0][ok]),
+              f"lz4_pack_rows ({label}) differs from the torch route")
+        ms = event_ms(lambda: lp.lz4_pack_rows(*planes, max_words=mw_lz4),
+                      20)
+        plain_ms = event_ms(lambda: lp.lz4_pack_rows_ref(
+            *planes, max_words=mw_lz4), 3)
+        route_ms = event_ms(lambda: lz4_route(*planes, mw_lz4), 3)
+        b_ = planes[0].shape[0]
+        if adversarial_plane is not None:
+            adversarial("lz4_pack_rows", adversarial_plane,
+                        (b_, n), err, ms, plain_ms)
+            res["lz4_pack_rows"]["adversarial"][-1].update(
+                torch_route_ms=route_ms, rows_not_ok=int((~ok).sum()))
+        else:
+            record("lz4_pack_rows", "lz4_pack_rows.cu",
+                   "qatzip_tpu/ops/lz4_pack.py:93", err, ms, plain_ms, None,
+                   # data, ml, dist, taken and lit read once, the words,
+                   # nbytes and ok written once
+                   b_ * n * 11 + b_ * (mw_lz4 * 4 + 5),
+                   # at the least: the emission's byte arithmetic (~8), its
+                   # offset (a scan add) and two word parts
+                   b_ * n * 12, f"({b_}, {n}) -> ({b_}, {mw_lz4})")
+            new_ops, new_peak = device_cost(
+                lambda: lp.lz4_pack_rows(*planes, max_words=mw_lz4))
+            old_ops, old_peak = device_cost(
+                lambda: lz4_route(*planes, mw_lz4))
+            res["lz4_pack_rows"].update(
+                torch_route_ms=route_ms, torch_route_device_ops=old_ops,
+                torch_route_peak_bytes=old_peak, device_ops=new_ops,
+                peak_bytes=new_peak, rows_not_ok=int((~ok).sum()))
+            print(f"kernel lz4_pack_rows: identical to the torch route (run "
+                  f"planes, emissions, cumsum, group pack), which takes "
+                  f"{route_ms:.4f} ms, {old_ops} device operations and "
+                  f"{old_peak} bytes of device memory above the planes a "
+                  f"tile; lz4_pack_rows {new_ops} and {new_peak}; rows not "
+                  f"ok {int((~ok).sum())} of {b_}")
+        return ok
+
+    lz4_check("tile", (tile,) + tuple(lp.lz4_planes(tile, lengths, n=n)))
+    for plane, kind in (("A * n", "A"), ("runs 269/270/271, n - 3, empty",
+                                         "runs")):
+        adv, adv_len = lz4_adversarial(n, kind, TILE_B)
+        adv = torch.from_numpy(adv).to(dev)
+        ok = lz4_check(plane, (adv,) + tuple(lp.lz4_planes(
+            adv, torch.from_numpy(adv_len).to(dev), n=n)), plane)
+        want_ok = [kind == "A" or i % 5 != 2 for i in range(TILE_B)]
+        check(ok.tolist() == want_ok, f"lz4_pack_rows ({plane}): ok flags "
+              f"{ok.tolist()[:10]}... where {want_ok[:10]}... was due")
+        del adv
+    torch.cuda.empty_cache()
+
+    # -- 4. the tokenizer layer, then the paths ------------------------------------------
     full = len(data) // (TILE_B * n)           # full tiles only
 
     def over_tiles(tokenize):
@@ -547,13 +691,65 @@ def main() -> None:
     chunks = [data[o:o + n] for o in range(0, len(data), n)]
     from torch.profiler import ProfilerActivity, profile
     launches_by_path = {}
-    for name, static, route, kernels in PATHS:
+    warm_by_path = {}
+    ratio_by_path = {}
+
+    def session(kind, level, device):
+        """A session of the path's kind on ``device``."""
+        s = qz.QzSession(device=device)
+        if kind.startswith("lz4s"):
+            p = qz.SessionParamsLZ4S()
+            p.qzCallback = postproc.zstd_callback
+            check(s.setup_lz4s(p) == qz.QZ_OK, "setup_lz4s failed")
+        elif kind == "lz4":
+            check(s.setup_lz4() == qz.QZ_OK, "setup_lz4 failed")
+        else:
+            p = qz.SessionParamsDeflate()
+            p.common.comp_lvl = level
+            if kind == "static":
+                p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
+            check(s.setup_deflate(p) == qz.QZ_OK, "setup_deflate failed")
+        return s
+
+    def lz4_blocks(blob: bytes):
+        info = parse_lz4_frame_header(blob, 0)
+        check(info is not None, "not an LZ4 frame")
+        walked = walk_lz4_blocks(blob, 0, len(blob), info.header_sz)
+        check(walked is not None, "an LZ4 frame cut short")
+        return [(blob[o:o + sz], st) for o, sz, st in walked[0]]
+
+    def decodes(name, kind, sess, out):
+        """Check ``out`` with an independent decoder; return what it
+        says of the output's shape."""
+        if kind == "lz4s-zstd":
+            check(out[:4] == b"\x28\xb5\x2f\xfd", f"{name}: not zstd")
+            check(postproc.zstd_decompress(out) == data,
+                  f"{name}: libzstd does not give back the input")
+            return "zstd frames, libzstd decodes them"
+        if kind == "lz4":
+            blocks = lz4_blocks(out)
+            head = b"".join(p if st else lz4_decompress_block_py(p, n)
+                            for p, st in blocks[:(1 << 20) // n])
+            check(head == data[:len(head)] and len(head) == 1 << 20,
+                  f"{name}: the pure-Python LZ4 decoder does not give back "
+                  "the first 1 MiB")
+            check(sess.decompress(out) == data, f"{name}: session "
+                  "decompress differs")
+            stored = sum(st for _p, st in blocks)
+            return (f"{len(blocks)} blocks ({stored} stored), the first "
+                    "1 MiB decoded by the pure-Python decoder")
+        plain, members = gunzip_members(out)
+        check(plain == data, f"{name}: stock zlib does not give back the "
+              "input")
+        check(members == len(chunks),
+              f"{name}: {members} gzip members for {len(data)} bytes")
+        check(sess.decompress(out) == data, f"{name}: session decompress "
+              "differs")
+        return f"{members} members, stock zlib decodes them"
+
+    for name, kind, level, route, kernels in PATHS:
         set_route(route)
-        p = qz.SessionParamsDeflate()
-        if static:
-            p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
-        sess = qz.QzSession(device="cuda")
-        check(sess.setup_deflate(p) == qz.QZ_OK, "setup_deflate failed")
+        sess = session(kind, level, "cuda")
         torch.cuda.reset_peak_memory_stats()
         cuda_pack.reset_launch_counts()
         t0 = time.perf_counter()
@@ -564,43 +760,70 @@ def main() -> None:
         launches_by_path[name] = launches
         check(all(launches[k] > 0 for k in kernels),
               f"{name}: a kernel of the path never launched: {launches}")
-        plain, members = gunzip_members(out)
-        check(plain == data, f"{name}: stock zlib does not give back the "
-              "input")
-        check(members == len(chunks),
-              f"{name}: {members} gzip members for {len(data)} bytes")
-        check(sess.decompress(out) == data, f"{name}: session decompress "
-              "differs")
+        shape = decodes(name, kind, sess, out)
         t0 = time.perf_counter()
         out2 = sess.compress(data)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         check(out2 == out, f"{name}: a second compress gave other bytes")
         peak = torch.cuda.max_memory_allocated()
-        print(f"path {name}: {len(data)} bytes -> {len(out)} in {members} "
-              f"members, ratio {len(data) / len(out):.4f}, vs zlib level 1 "
-              f"{zl1 / len(out):.4f}; compress cold {cold_s:.3f} s = "
-              f"{len(data) / cold_s / 1e9:.4f} GB/s, warm {warm_s:.3f} s = "
-              f"{len(data) / warm_s / 1e9:.4f} GB/s; peak device memory "
-              f"{peak} bytes; launches {launches}")
+        warm_by_path[name] = len(data) / warm_s / 1e9
+        ratio_by_path[name] = len(data) / len(out)
+        vs = (f", vs zlib level 1 {zl1 / len(out):.4f}"
+              if kind in ("dynamic", "static") else "")
+        fr = (f"; full-row search {full_row_ms:.3f} ms a tile"
+              if name in FULL_ROW_PATHS else "")
+        print(f"path {name}: {len(data)} bytes -> {len(out)} ({shape}), "
+              f"ratio {len(data) / len(out):.4f}{vs}; compress cold "
+              f"{cold_s:.3f} s = {len(data) / cold_s / 1e9:.4f} GB/s, warm "
+              f"{warm_s:.3f} s = {warm_by_path[name]:.4f} GB/s; peak device "
+              f"memory {peak} bytes; launches {launches}{fr}")
 
         # breakdown: the engine's stages apart
         eng = sess._engine
         finals = [True] * len(chunks)
-        if name == "token":
+        if kind == "lz4" and route:
             t0 = time.perf_counter()
-            tiles = list(eng._tokenize_tiles(chunks, n, 1))
+            items = eng._lz4_device_pack(chunks, n)
+            torch.cuda.synchronize()
             dev_s = time.perf_counter() - t0
             t0 = time.perf_counter()
-            eng._pack(chunks, finals, 0, tiles)
+            fetched = list(eng._fetch_lz4(items))
+            fetch_s = time.perf_counter() - t0
+            nfetch = sum(f[2].nbytes for f in fetched)
+            not_ok = sum(int((~f[4][:f[1]]).sum()) for f in fetched)
+            t0 = time.perf_counter()
+            eng._finish_lz4(chunks, fetched)
+            host_s = time.perf_counter() - t0
+            del items, fetched
+            print(f"breakdown {name}: stage + device pack {dev_s:.3f} s, d2h "
+                  f"fetch {fetch_s:.3f} s ({nfetch} bytes fetched), host "
+                  f"finish {host_s:.3f} s on {os.cpu_count()} cpus; rows "
+                  f"not ok (coded again on the host) {not_ok} of "
+                  f"{len(chunks)}")
+        elif kind in ("lz4", "lz4s-zstd") or route is False:
+            alg = {"lz4": "lz4", "lz4s-zstd": "lz4s"}.get(kind, "deflate")
+            t0 = time.perf_counter()
+            tiles = list(eng._tokenize_tiles(chunks, n, level, alg))
+            dev_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            packed = eng._pack(chunks, finals, 0, tiles, alg)
             host_s = time.perf_counter() - t0
             fetched = sum(t[2].nbytes for t in tiles)
+            post = ""
+            if kind == "lz4s-zstd":
+                stream = b"".join(len(p).to_bytes(4, "little") + p
+                                  for p, _c in packed)
+                t0 = time.perf_counter()
+                postproc.zstd_callback(None, data, stream, sess.mini_match)
+                post = (f", zstd post-process {time.perf_counter() - t0:.3f}"
+                        f" s ({len(stream)} LZ4s bytes in)")
             print(f"breakdown {name}: stage + tokenize + fetch {dev_s:.3f} s "
                   f"({fetched} token bytes fetched), host pack alone "
-                  f"{host_s:.3f} s on {os.cpu_count()} cpus")
-            del tiles
+                  f"{host_s:.3f} s on {os.cpu_count()} cpus{post}")
+            del tiles, packed
         else:
-            dynamic = not static
+            dynamic = kind == "dynamic"
             torch.cuda.synchronize()
             # time every host tree build of the run where it happens
             plan_s = [0.0]
@@ -613,7 +836,7 @@ def main() -> None:
             real_plan, dispatch.plan_tile = dispatch.plan_tile, timed_plan
             try:
                 t0 = time.perf_counter()
-                items = eng._device_pack(chunks, n, 1, dynamic)
+                items = eng._device_pack(chunks, n, level, dynamic)
                 torch.cuda.synchronize()
                 dev_s = time.perf_counter() - t0
             finally:
@@ -650,20 +873,24 @@ def main() -> None:
                   f"ms {100 * e.self_device_time_total / max(dev_us, 1):5.1f}"
                   f" % x{e.count:<5d} {e.key[:80]}")
         torch.cuda.empty_cache()
+    set_route(None)
+    pick = dispatch.CudaEngine(dev).packs_on_device(False, "lz4")
+    print(f"route lz4: warm GB/s token {warm_by_path['lz4-token']:.4f} vs "
+          f"device pack {warm_by_path['lz4-device-pack']:.4f}, ratio token "
+          f"{ratio_by_path['lz4-token']:.4f} vs device pack "
+          f"{ratio_by_path['lz4-device-pack']:.4f}; the engine on the card "
+          f"takes the {'device pack' if pick else 'token path'}")
 
     # -- 5. CPU and CUDA agree ---------------------------------------------------
     head = data[:1 << 20]
-    for name, static, _route, _k in PATHS:
+    for name, kind, level, route, _k in PATHS:
         # both engines held on the path (the CPU engine's own choice for a
         # dynamic session is the token path)
-        set_route(name != "token")
-        p = qz.SessionParamsDeflate()
-        if static:
-            p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
+        set_route(route if route is not None else kind in ("dynamic",
+                                                          "static"))
         outs = []
         for device in ("cpu", "cuda"):
-            s = qz.QzSession(device=device)
-            s.setup_deflate(p)
+            s = session(kind, level, device)
             t0 = time.perf_counter()
             outs.append(s.compress(head))
             if device == "cpu":
@@ -676,7 +903,9 @@ def main() -> None:
 
     # -- 6. summary -----------------------------------------------------------------
     for name, entry in res.items():
-        entry["launches"] = launches_by_path[MAIN_PATH][name]
+        entry["launches"] = launches_by_path[HOME_PATH.get(name,
+                                                           MAIN_PATH)][name]
+        check(entry["launches"] > 0, f"{name} never launched on its path")
         entry["launches_by_path"] = {p: launches_by_path[p][name]
                                      for p, *_ in PATHS}
     print(json.dumps({"kernels": list(res.values())}))

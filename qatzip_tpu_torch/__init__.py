@@ -1,16 +1,18 @@
 """qatzip_tpu_torch — the PyTorch / CUDA port of qatzip_tpu.
 
-The port runs gzip (DEFLATE) compression with the JAX package's device
-tokenizer, bit for bit, on an NVIDIA GPU: the LZ77 candidate search and
-the greedy parse are hand-written CUDA kernels (``ops/cuda_pack.py``),
-the entropy pack runs in the host C++ packer. It imports torch and never
-jax or qatzip_tpu.
+The port runs DEFLATE (gzip, zlib, raw, 4B; levels 1-9), LZ4 and LZ4s
+compression with the JAX package's device tokenizer and packers, bit for
+bit, on an NVIDIA GPU: the LZ77 candidate search, the greedy parse, the
+deflate bit-packer, the Huffman lookup and histogram and the LZ4 byte
+packer are hand-written CUDA kernels (``ops/cuda_pack.py``); the token
+route packs in the host C++ packer. LZ4s output goes to zstd through
+``postproc.zstd_callback``. It imports torch and never jax or qatzip_tpu.
 
 Quick start::
 
     import qatzip_tpu_torch as qz
     sess = qz.QzSession(device="cuda")     # or device="cpu"
-    sess.setup_deflate()
+    sess.setup_deflate()                   # or setup_lz4(), setup_lz4s()
     blob = sess.compress(data)            # gzip-ext members
     assert sess.decompress(blob) == data
 """
@@ -18,12 +20,16 @@ Quick start::
 from .constants import (  # noqa: F401
     DataFormat, Direction, HuffmanHdr, PollingMode, QzError, rc_name,
     QZ_OK, QZ_PARAMS, QZ_FAIL, QZ_BUF_ERROR, QZ_DATA_ERROR, QZ_NO_HW,
-    QZ_NOSW_NO_HW, QZ_NOT_SUPPORTED, QZ_SW_BACKUP_OFF, QZ_SW_BACKUP_ON,
-    QZ_AUTO_SELECT_BEST, QZ_HW_BUFF_SZ,
+    QZ_NOSW_NO_HW, QZ_NOT_SUPPORTED, QZ_POST_PROCESS_ERROR,
+    QZ_SW_BACKUP_OFF, QZ_SW_BACKUP_ON, QZ_AUTO_SELECT_BEST, QZ_HW_BUFF_SZ,
 )
 from .convert import params_from_reference  # noqa: F401
 from .ops.lz77 import lz77_tokenize  # noqa: F401
-from .params import SessionParamsCommon, SessionParamsDeflate  # noqa: F401
+from .params import (  # noqa: F401
+    SessionParamsCommon, SessionParamsDeflate, SessionParamsLZ4,
+    SessionParamsLZ4S,
+)
+from .postproc import zstd_callback  # noqa: F401
 from .session import QzSession  # noqa: F401
 
 __version__ = "0.1.0"

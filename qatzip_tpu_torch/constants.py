@@ -1,4 +1,5 @@
-"""Public enums, return codes and the defaults the deflate path uses.
+"""Public enums, return codes, the session defaults and the LZ4 framing
+constants.
 
 Counterpart of ``qatzip_tpu/constants.py``; values stay numerically
 identical to the reference's ``include/qatzip.h`` so parameters and return
@@ -47,6 +48,7 @@ class PollingMode(enum.IntEnum):
 # Return codes (reference include/qatzip.h, numeric parity).
 QZ_OK = 0
 QZ_DUPLICATE = 1
+QZ_FORCE_SW = 2
 QZ_PARAMS = -1
 QZ_FAIL = -2
 QZ_BUF_ERROR = -3
@@ -54,6 +56,7 @@ QZ_DATA_ERROR = -4
 QZ_NO_HW = 11
 QZ_UNSUPPORTED_FMT = 16
 QZ_NOSW_NO_HW = -101
+QZ_POST_PROCESS_ERROR = -117
 QZ_NOT_SUPPORTED = -200
 
 QZ_SW_BACKUP_OFF = 0
@@ -79,6 +82,14 @@ QZ_REQ_THRESHOLD_MAXIMUM = 32
 QZ_REQ_THRESHOLD_DEFAULT = QZ_REQ_THRESHOLD_MAXIMUM
 QZ_WAIT_CNT_THRESHOLD_DEFAULT = 8
 QZ_DEFLATE_COMP_LVL_MAXIMUM = 9
+QZ_LZ4_COMP_LVL_MAXIMUM = 12
+
+#: LZ4 frame constants (reference src/qatzip_internal.h:136-158)
+LZ4_MAGIC = 0x184D2204
+LZ4_SKIPPABLE_MAGIC_MIN = 0x184D2A50
+LZ4_BLOCK_UNCOMPRESSED_FLAG = 0x80000000
+#: the LZ4s minimum match (3 or 4) of a session that does not set one
+LZ4S_MIN_MATCH_DEFAULT = 3
 
 #: Size of output for a zero-byte gzip-ext compress (reference qatzip.h:1694)
 QZ_EMPTY_OUT_SZ_GZIP_EXT = 34
@@ -95,9 +106,9 @@ def effective_deflate_sw_level(level: int) -> int:
 
 # Only genuine return codes: limits such as QZ_HW_BUFF_SZ are not rcs.
 _RC_NAMES = {globals()[k]: k for k in (
-    "QZ_OK", "QZ_DUPLICATE", "QZ_PARAMS", "QZ_FAIL", "QZ_BUF_ERROR",
-    "QZ_DATA_ERROR", "QZ_NO_HW", "QZ_UNSUPPORTED_FMT", "QZ_NOSW_NO_HW",
-    "QZ_NOT_SUPPORTED")}
+    "QZ_OK", "QZ_DUPLICATE", "QZ_FORCE_SW", "QZ_PARAMS", "QZ_FAIL",
+    "QZ_BUF_ERROR", "QZ_DATA_ERROR", "QZ_NO_HW", "QZ_UNSUPPORTED_FMT",
+    "QZ_NOSW_NO_HW", "QZ_POST_PROCESS_ERROR", "QZ_NOT_SUPPORTED")}
 
 
 def rc_name(rc: int) -> str:

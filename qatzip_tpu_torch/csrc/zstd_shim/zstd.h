@@ -1,17 +1,22 @@
-/* Stand-in for <zstd.h> when the port builds its copy of
- * csrc/qztpu_native.cpp.
+/* Declarations of the part of zstd 1.5's API that csrc/qztpu_native.cpp
+ * uses, for the port's build of that file.
  *
- * The port wraps only the deflate, crc32 and inflate entry points of that
- * file; its lz4s->zstd bridge (qz_zstd_*) is not on the port's path, and
- * machines that run the port need not carry zstd's development headers.
- * Every ZSTD_* call here therefore fails: ZSTD_createCCtx returns NULL and
- * the one-shot calls return an error code, so the qz_zstd_* functions
- * return their documented negative codes. Being first on the include
- * path, this header is used even where the real one is installed, so the
- * port's library is the same on every machine.
+ * Machines that run the port carry zstd's runtime library, libzstd.so.1,
+ * but not always its development files (zstd.h, the libzstd.so link).
+ * This header, first on the include path, stands in for <zstd.h>: it
+ * declares, and defines nothing. The values below are zstd 1.5's
+ * (ZSTD_c_blockDelimiters is ZSTD_c_experimentalParam11 = 1008 and
+ * ZSTD_c_validateSequences ZSTD_c_experimentalParam12 = 1009 from 1.5.0
+ * on; ZSTD_Sequence has had this layout since 1.4.10). The build links
+ * the library by its soname (-l:libzstd.so.1).
+ *
+ * Every function is declared weak: where libzstd.so.1 is missing, the
+ * library still links and loads, the zstd functions stay unresolved, and
+ * the Python wrapper (qatzip_tpu_torch/native.py) raises before calling
+ * any of them.
  */
-#ifndef QZTPU_TORCH_ZSTD_SHIM_H
-#define QZTPU_TORCH_ZSTD_SHIM_H
+#ifndef QZTPU_TORCH_ZSTD_DECL_H
+#define QZTPU_TORCH_ZSTD_DECL_H
 
 #include <stddef.h>
 
@@ -20,6 +25,8 @@
 #ifdef __cplusplus
 extern "C" {
 #endif
+
+#define QZTPU_ZSTD_API __attribute__((weak))
 
 typedef struct ZSTD_CCtx_s ZSTD_CCtx;
 
@@ -32,8 +39,8 @@ typedef struct {
 
 typedef enum {
   ZSTD_c_compressionLevel = 100,
-  ZSTD_c_blockDelimiters = 1000,
-  ZSTD_c_validateSequences = 1001
+  ZSTD_c_blockDelimiters = 1008,
+  ZSTD_c_validateSequences = 1009
 } ZSTD_cParameter;
 
 typedef enum {
@@ -41,41 +48,23 @@ typedef enum {
   ZSTD_sf_explicitBlockDelimiters = 1
 } ZSTD_sequenceFormat_e;
 
-#define QZTPU_ZSTD_SHIM_ERROR ((size_t) - (int)ZSTD_error_GENERIC)
-
-static inline ZSTD_CCtx* ZSTD_createCCtx(void) { return NULL; }
-static inline size_t ZSTD_freeCCtx(ZSTD_CCtx* cctx) { (void)cctx; return 0; }
-static inline size_t ZSTD_CCtx_setParameter(ZSTD_CCtx* cctx,
-                                            ZSTD_cParameter param, int value) {
-  (void)cctx; (void)param; (void)value;
-  return QZTPU_ZSTD_SHIM_ERROR;
-}
-static inline unsigned ZSTD_isError(size_t code) {
-  return code > (size_t) - (int)ZSTD_error_maxCode;
-}
-static inline ZSTD_ErrorCode ZSTD_getErrorCode(size_t code) {
-  return ZSTD_isError(code) ? (ZSTD_ErrorCode)(0 - code) : ZSTD_error_no_error;
-}
-static inline size_t ZSTD_compressBound(size_t n) {
-  return n + (n >> 8) + 64;
-}
-static inline size_t ZSTD_compressSequences(
-    ZSTD_CCtx* cctx, void* dst, size_t dst_cap, const ZSTD_Sequence* seqs,
-    size_t nseq, const void* src, size_t src_size) {
-  (void)cctx; (void)dst; (void)dst_cap; (void)seqs; (void)nseq; (void)src;
-  (void)src_size;
-  return QZTPU_ZSTD_SHIM_ERROR;
-}
-static inline size_t ZSTD_compress(void* dst, size_t dst_cap, const void* src,
-                                   size_t src_size, int level) {
-  (void)dst; (void)dst_cap; (void)src; (void)src_size; (void)level;
-  return QZTPU_ZSTD_SHIM_ERROR;
-}
-static inline size_t ZSTD_decompress(void* dst, size_t dst_cap,
-                                     const void* src, size_t src_size) {
-  (void)dst; (void)dst_cap; (void)src; (void)src_size;
-  return QZTPU_ZSTD_SHIM_ERROR;
-}
+QZTPU_ZSTD_API ZSTD_CCtx* ZSTD_createCCtx(void);
+QZTPU_ZSTD_API size_t ZSTD_freeCCtx(ZSTD_CCtx* cctx);
+QZTPU_ZSTD_API size_t ZSTD_CCtx_setParameter(ZSTD_CCtx* cctx,
+                                             ZSTD_cParameter param, int value);
+QZTPU_ZSTD_API unsigned ZSTD_isError(size_t code);
+QZTPU_ZSTD_API size_t ZSTD_compressBound(size_t src_size);
+QZTPU_ZSTD_API size_t ZSTD_compressSequences(ZSTD_CCtx* cctx, void* dst,
+                                             size_t dst_cap,
+                                             const ZSTD_Sequence* seqs,
+                                             size_t nseq, const void* src,
+                                             size_t src_size);
+QZTPU_ZSTD_API size_t ZSTD_compress(void* dst, size_t dst_cap,
+                                    const void* src, size_t src_size,
+                                    int level);
+QZTPU_ZSTD_API size_t ZSTD_decompress(void* dst, size_t dst_cap,
+                                      const void* src, size_t src_size);
+QZTPU_ZSTD_API unsigned ZSTD_versionNumber(void);
 
 #ifdef __cplusplus
 }

@@ -19,7 +19,10 @@ what it replaces:
     its wrapper and plain version live in ``deflate_pack.py``, beside the
     emission functions they share;
   * ``huffman_lookup`` — TPU kernel k3 (``pallas_pack.py::huffman_lookup``);
-  * ``symbol_histogram`` — TPU kernel k4 (``pallas_pack.py::symbol_histogram``).
+  * ``symbol_histogram`` — TPU kernel k4 (``pallas_pack.py::symbol_histogram``);
+  * ``lz4_pack_rows`` — the LZ4 device pack's byte packer, which the JAX
+    package ran as XLA ops (``lz4_pack.py:65-143``); its wrapper and plain
+    version live in ``lz4_pack.py``.
 
 32-bit words cross the kernel interface as int32 tensors holding the
 uint32 bit pattern (torch has no full uint32 arithmetic). The plain
@@ -35,7 +38,7 @@ import threading
 import torch
 
 LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "pack_rows": 0,
-            "huffman_lookup": 0, "symbol_histogram": 0}
+            "huffman_lookup": 0, "symbol_histogram": 0, "lz4_pack_rows": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -66,6 +69,8 @@ def kernels():
                                               vp]
             lib.qz_symbol_histogram.restype = ci
             lib.qz_symbol_histogram.argtypes = [vp, vp, vp, ci, ci, vp]
+            lib.qz_lz4_pack_rows.restype = ci
+            lib.qz_lz4_pack_rows.argtypes = [vp] * 8 + [ci, ci, ci, vp]
             lib.qz_cuda_error_string.restype = ctypes.c_char_p
             lib.qz_cuda_error_string.argtypes = [ci]
             _lib = lib

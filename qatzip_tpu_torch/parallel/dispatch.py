@@ -3,7 +3,7 @@ the host.
 
 Counterpart of ``qatzip_tpu/parallel/dispatch.py`` on one device. The
 dispatch layer (codec.py) fans a request into ``hw_buff_sz`` chunks; the
-engine stages them in tiles of up to TILE_B rows and takes one of two
+engine stages them in tiles of up to TILE_B rows and takes one of three
 paths, as ``CudaEngine.packs_on_device`` picks them:
 
   * the full-device DEFLATE pack (every static session; dynamic sessions
@@ -13,16 +13,22 @@ paths, as ``CudaEngine.packs_on_device`` picks them:
     bucket, and the host only frames them. Dynamic sessions take two
     device passes around a host tree build per chunk
     (``native.dyn_plan``), with one tile of lookahead;
-  * the token path (dynamic sessions on the CPU): the device tokenizes
-    every tile, the engine fetches each tile's token counts and the used
-    token prefix, rounded to a bucket, and the host C++ packer packs
-    every chunk on the host pool while the device works on later tiles.
+  * the full-device LZ4 pack (ops/lz4_pack.py, LZ4 sessions on a CUDA
+    device): the device parses and packs final block bytes; the rows
+    that are not ``ok`` (a literal run over 270) are coded again on the
+    host;
+  * the token path (dynamic deflate and LZ4 sessions on the CPU, every
+    LZ4s session): the device tokenizes every tile, the engine fetches
+    each tile's token counts and the used token prefix, rounded to a
+    bucket, and the host C++ packer (deflate, LZ4 or LZ4s) packs every
+    chunk on the host pool while the device works on later tiles.
 
 Results return as (payload, crc32) per chunk in submission order. On
 ``device="cpu"`` the same code runs the kernels' plain versions.
 
-Not ported yet: the row split for chunks over 64 KiB, the multi-tile
-scan grouping, the mesh and the device CRC.
+Not ported yet: the row split for chunks over 64 KiB, compress-and-verify,
+the multi-tile scan grouping, the mesh, the device CRC and the device LZ4
+decode.
 """
 
 from __future__ import annotations
@@ -33,11 +39,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..constants import QZ_NOT_SUPPORTED, QZ_PARAMS, QzError
+from ..constants import QZ_NOT_SUPPORTED, QzError
 from ..ops.deflate_pack import (deflate_analyze_hist, deflate_pack_device,
                                 deflate_pack_dynamic, finish_stream,
                                 finish_stream_dynamic)
-from ..ops.lz77 import MAX_WINDOW, lz77_tokenize, merge_segment_tokens
+from ..ops.lz4_pack import lz4_pack_device
+from ..ops.lz77 import lz77_tokenize, merge_segment_tokens
 
 # chunks per device dispatch
 TILE_B = 256
@@ -115,6 +122,15 @@ def _tok_knobs(level: int, n: int):
     return ss, ov, cs, ctx, probes
 
 
+def _tok_params(algorithm: str):
+    """The tokenizer's match limits per algorithm: deflate's, and for LZ4
+    and LZ4s a 32 KiB window (the reference's windowSize 7) with matches
+    up to the token's 15-bit length field."""
+    if algorithm == "deflate":
+        return dict(min_match=4, max_match=258, window=32768)
+    return dict(min_match=4, max_match=32767, window=32768)
+
+
 class CudaEngine:
     """Chunk-batch engine on one torch device ("cuda:i" or "cpu")."""
 
@@ -123,7 +139,8 @@ class CudaEngine:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
 
-    def _tokenize_tiles(self, chunks: Sequence[bytes], n: int, level: int):
+    def _tokenize_tiles(self, chunks: Sequence[bytes], n: int, level: int,
+                        algorithm: str = "deflate"):
         """Yield (tile_start, tile_len, tokens uint32, ntok) per tile.
 
         Every tile is dispatched first; the fetch is two-phase: ntok, then
@@ -131,10 +148,9 @@ class CudaEngine:
         the tokens come back as (b, nseg, k) segment prefixes plus (b,
         nseg) counts, joined by merge_segment_tokens in the pack stage."""
         ss, ov, cs, ctx, probes = _tok_knobs(level, n)
-        _check_search(level, n, ss)
         kw = dict(parse_seg=min(8192, n), search_seg=ss, search_overlap=ov,
                   compact_seg=cs, ctx_words=ctx, probes=probes,
-                  min_match=4, max_match=258, window=32768)
+                  **_tok_params(algorithm))
         pending = []
         for start in range(0, len(chunks), TILE_B):
             tile = chunks[start:start + TILE_B]
@@ -158,41 +174,63 @@ class CudaEngine:
                 sl = toks[:, :_fetch_bucket(int(ntok_np.max()), n)]
             yield start, nt, sl.cpu().numpy().view(np.uint32), ntok_np
 
-    def packs_on_device(self, huffman_static: bool) -> bool:
+    def packs_on_device(self, huffman_static: bool,
+                        algorithm: str = "deflate") -> bool:
         """Whether a session's chunks take the full-device pack.
 
-        Static sessions always do, as in the JAX package. Dynamic sessions
-        do on a CUDA device: there the host packer bounds the token path,
-        and on an H100 with 8 host cores the device pack compressed a 64
-        MiB request 1.3-1.9x as fast at the same ratio (chip_smoke.py's
-        "path" lines, PERF.md). On the CPU neither route won every run,
-        and the token path keeps the JAX package's default bytes."""
-        return huffman_static or self.device.type == "cuda"
+        Deflate: static sessions always do, as in the JAX package. Dynamic
+        sessions do on a CUDA device: there the host packer bounds the
+        token path, and on an H100 with 8 host cores the device pack
+        compressed a 64 MiB request 1.3-1.9x as fast at the same ratio
+        (chip_smoke.py's "path" lines, PERF.md). On the CPU neither route
+        won every run, and the token path keeps the JAX package's default
+        bytes.
+
+        LZ4 sessions do on a CUDA device: on an H100 with 8 host cores the
+        LZ4 device pack compressed a 64 MiB request at 0.18-0.22 GB/s
+        against the token path's 0.10-0.14 in each of six chip_smoke.py
+        runs, at a better ratio (1.8615 against 1.7839; PERF.md). On the
+        CPU they take the token path, the JAX package's default. LZ4s
+        always takes the token path, as in the JAX package."""
+        if algorithm == "lz4s":
+            return False
+        return ((algorithm == "deflate" and huffman_static)
+                or self.device.type == "cuda")
 
     def compress_chunks(self, chunks: Sequence[bytes], *, level: int,
+                        algorithm: str = "deflate",
                         final_flags: Optional[Sequence[bool]] = None,
-                        huffman_static: bool = False,
+                        mini_match: int = 3, huffman_static: bool = False,
                         ) -> List[Tuple[bytes, int]]:
-        """Compress each chunk to an independent raw deflate payload + its
-        crc32, on the route ``packs_on_device`` picks. On the token path
-        the host packer runs mode 1 (static Huffman) for static sessions,
-        mode 0 (best of stored/static/dynamic) otherwise."""
+        """Compress each chunk to an independent payload + its crc32, on
+        the route ``packs_on_device`` picks: a raw deflate stream, or one
+        LZ4 or LZ4s block. On the token path the deflate host packer runs
+        mode 1 (static Huffman) for static sessions, mode 0 (best of
+        stored/static/dynamic) otherwise."""
         if any(len(c) > DEV_MAX for c in chunks):
             raise QzError(QZ_NOT_SUPPORTED, "chunks over 64 KiB need the "
                           "device row split, not ported to "
                           "qatzip_tpu_torch yet")
+        if algorithm not in ("deflate", "lz4", "lz4s"):
+            raise ValueError(f"unknown algorithm {algorithm}")
         finals = (list(final_flags) if final_flags is not None
                   else [True] * len(chunks))
         n = _pow2_chunk_n(chunks)
-        if self.packs_on_device(huffman_static):
+        if self.packs_on_device(huffman_static, algorithm):
+            if algorithm == "lz4":
+                return self._finish_lz4(chunks, self._fetch_lz4(
+                    self._lz4_device_pack(chunks, n)))
             items = self._device_pack(chunks, n, level, not huffman_static)
             return self._finish(chunks, finals, self._fetch_words(items))
         return self._pack(chunks, finals, 1 if huffman_static else 0,
-                          self._tokenize_tiles(chunks, n, level))
+                          self._tokenize_tiles(chunks, n, level, algorithm),
+                          algorithm, mini_match)
 
-    def _pack(self, chunks, finals, mode: int, tiles):
+    def _pack(self, chunks, finals, mode: int, tiles,
+              algorithm: str = "deflate", mini_match: int = 3):
         """Pack every chunk of ``tiles`` (as _tokenize_tiles yields them)
-        with the host packer on the host pool, in submission order."""
+        with the host packer of ``algorithm`` on the host pool, in
+        submission order."""
         from .. import native
         from ..engines import host_pool
         lib = native.get_lib()
@@ -205,8 +243,13 @@ class CudaEngine:
                                             row_toks.shape[-1])
             else:
                 toks = row_toks[:int(row_ntok)]
-            payload = lib.deflate_pack(chunk, toks, len(toks),
-                                       final=finals[gi], mode=mode)
+            if algorithm == "lz4":
+                payload = lib.lz4_pack(chunk, toks, len(toks))
+            elif algorithm == "lz4s":
+                payload = lib.lz4s_pack(chunk, toks, len(toks), mini_match)
+            else:
+                payload = lib.deflate_pack(chunk, toks, len(toks),
+                                           final=finals[gi], mode=mode)
             return payload, lib.crc32(chunk)
 
         pool = host_pool()
@@ -226,7 +269,6 @@ class CudaEngine:
         device analyzes tile k + 1, and at most two tiles' planes are
         held at a time."""
         ss, ov, _cs, ctx, probes = _tok_knobs(level, n)
-        _check_search(level, n, ss)
         pkw = dict(parse_seg=8192, search_seg=ss, search_overlap=ov,
                    ctx_words=ctx, probes=probes)
         items, ahead = [], None
@@ -310,12 +352,55 @@ class CudaEngine:
             for i in range(nt)]
         return [f.result() for f in futures]
 
+    # -- the full-device LZ4 pack ---------------------------------------------
 
-def _check_search(level: int, n: int, ss: int) -> None:
-    if ss == 0 and n > MAX_WINDOW:
-        raise QzError(QZ_PARAMS, f"level {level} needs the full-row "
-                      f"candidate search over {n}-byte rows, which "
-                      "qatzip_tpu_torch does not have yet")
+    def _lz4_device_pack(self, chunks: Sequence[bytes], n: int):
+        """Dispatch every tile's LZ4 device pack. Returns one (tile_start,
+        tile_len, words, nbytes, ok) per tile, all on the device."""
+        items = []
+        for start in range(0, len(chunks), TILE_B):
+            tile = chunks[start:start + TILE_B]
+            data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
+            words, nbytes, ok = lz4_pack_device(
+                torch.from_numpy(data).to(self.device),
+                torch.from_numpy(lengths).to(self.device), n=n)
+            items.append((start, len(tile), words, nbytes, ok))
+        return items
+
+    @staticmethod
+    def _fetch_lz4(items):
+        """Yield each tile with its block bytes fetched: the word prefix
+        that covers the longest row, rounded to a bucket."""
+        for start, nt, words, nbytes, ok in items:
+            nb_np = nbytes.cpu().numpy()
+            ok_np = ok.cpu().numpy()
+            k = _fetch_bucket(int(nb_np.max() + 3) // 4 + 1, words.shape[1])
+            yield (start, nt, words[:, :k].cpu().numpy().view(np.uint32),
+                   nb_np, ok_np)
+
+    def _finish_lz4(self, chunks, fetched):
+        """Each chunk's block on the host pool, in submission order: the
+        device's bytes, or the host LZ4 coder's for a row that is not ok
+        (or an empty chunk); crc32."""
+        from .. import native
+        from ..engines import host_pool
+        lib = native.get_lib()
+
+        def finish_one(args):
+            gi, words_row, nb, row_ok = args
+            chunk = chunks[gi]
+            if row_ok and len(chunk):
+                payload = words_row[:(nb + 3) // 4].tobytes()[:nb]
+            else:
+                payload = lib.lz4_compress_block(chunk)
+            return payload, lib.crc32(chunk)
+
+        pool = host_pool()
+        futures = [pool.submit(finish_one, (start + i, words_np[i],
+                                            int(nb_np[i]), bool(ok_np[i])))
+                   for start, nt, words_np, nb_np, ok_np in fetched
+                   for i in range(nt)]
+        return [f.result() for f in futures]
 
 
 def _to_host(t: torch.Tensor):

@@ -1,13 +1,14 @@
 """Session parameter structs and their validation.
 
-Counterpart of ``qatzip_tpu/params.py`` for the deflate path: the same
-fields, defaults and checks (reference ``qzCheckParams*``,
-src/qatzip_utils.c:385-520).
+Counterpart of ``qatzip_tpu/params.py`` for the deflate, LZ4 and LZ4s
+sessions: the same fields, defaults and checks (reference
+``qzCheckParams*``, src/qatzip_utils.c:385-520).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 from . import constants as C
 from .constants import DataFormat, Direction, HuffmanHdr, PollingMode, QZ_OK, QZ_PARAMS
@@ -78,5 +79,39 @@ class SessionParamsDeflate:
         if self.data_fmt not in (DataFormat.DEFLATE_4B, DataFormat.DEFLATE_GZIP,
                                  DataFormat.DEFLATE_GZIP_EXT,
                                  DataFormat.DEFLATE_RAW, DataFormat.ZLIB):
+            return QZ_PARAMS
+        return QZ_OK
+
+
+@dataclasses.dataclass
+class SessionParamsLZ4:
+    """LZ4 session params (``QzSessionParamsLZ4_T``)."""
+
+    common: SessionParamsCommon = dataclasses.field(
+        default_factory=SessionParamsCommon)
+
+    def check(self) -> int:
+        return self.common.check(max_level=C.QZ_LZ4_COMP_LVL_MAXIMUM)
+
+
+@dataclasses.dataclass
+class SessionParamsLZ4S:
+    """LZ4s session params (``QzSessionParamsLZ4S_T``). ``qzCallback`` is
+    the post-process hook the session runs on each compressed request,
+    ``qzCallback(callback_external, src, lz4s_blocks, mini_match)``
+    (reference ``qzLZ4SCallbackFn``; ``postproc.zstd_callback`` is the
+    lz4s -> zstd one)."""
+
+    common: SessionParamsCommon = dataclasses.field(
+        default_factory=SessionParamsCommon)
+    lz4s_mini_match: int = C.LZ4S_MIN_MATCH_DEFAULT
+    qzCallback: Optional[Callable] = None
+    callback_external: Optional[object] = None
+
+    def check(self) -> int:
+        rc = self.common.check(max_level=C.QZ_LZ4_COMP_LVL_MAXIMUM)
+        if rc != QZ_OK:
+            return rc
+        if self.lz4s_mini_match not in (3, 4):
             return QZ_PARAMS
         return QZ_OK

@@ -14,6 +14,7 @@ import torch
 
 from qatzip_tpu_torch.ops import cuda_pack
 from qatzip_tpu_torch.ops import deflate_pack as dp
+from qatzip_tpu_torch.ops import lz4_pack as lp
 from qatzip_tpu_torch.parallel.dispatch import _tok_knobs, plan_tile
 
 pytestmark = pytest.mark.cuda
@@ -418,7 +419,7 @@ def test_session_on_card_matches_cpu(card, monkeypatch, static, device_pack):
     c = make_corpus()
     data = c["text"][:300000] + c["binary"][:100000] + c["noise"][:50000]
     monkeypatch.setattr(CudaEngine, "packs_on_device",
-                        lambda self, s: device_pack)
+                        lambda self, s, algorithm="deflate": device_pack)
     p = qz.SessionParamsDeflate()
     if static:
         p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
@@ -431,3 +432,121 @@ def test_session_on_card_matches_cpu(card, monkeypatch, static, device_pack):
     assert outs[0] == outs[1]
     d = zlib.decompressobj(31)
     assert d.decompress(outs[1])[:65536] == data[:65536]
+
+
+# ---------------------------------------------------------------------------
+# the LZ4 byte packer and the LZ4 / LZ4s / level-6 sessions
+# ---------------------------------------------------------------------------
+
+def lz4_rows(n, seed=0):
+    """(data (6, n) uint8, lengths) rows that are hard for the LZ4 byte
+    packer: ``b"A" * n`` (back-to-back 273-matches with their own
+    tokens), a literal run of exactly 269, 270 and 271 literals (random
+    bytes, then one byte repeated), corpus text whose length is not a
+    multiple of 4, and an empty row."""
+    from corpus import text_like          # tests/ is on sys.path
+    rng = np.random.default_rng(seed)
+    rows = [b"A" * n]
+    for run in (269, 270, 271):
+        rows.append(bytes(rng.integers(0, 256, run - 1, dtype=np.uint8))
+                    + b"x" * n)
+    rows += [text_like(n + 64, seed=seed)[:n - 3], b""]
+    data = np.zeros((len(rows), n), np.uint8)
+    lengths = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        r = r[:n]
+        data[i, :len(r)] = np.frombuffer(r, np.uint8)
+        lengths[i] = len(r)
+    return torch.from_numpy(data), torch.from_numpy(lengths)
+
+
+def _lz4_planes_on(card, n, seed=0):
+    """The rows' LZ4 parse planes on the card (data, ml, dist, taken,
+    lit), and the same on the host."""
+    data, lengths = lz4_rows(n, seed)
+    planes = lp.lz4_planes(data.to(card), lengths.to(card), n=n)
+    on_card = [data.to(card)] + [p.to(torch.int32) if p.dtype != torch.bool
+                                 else p for p in planes]
+    return on_card, [p.cpu() for p in on_card]
+
+
+def _lz4_same(got, want):
+    torch.cuda.synchronize()
+    return all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [65536, 8192, 1024])
+def test_lz4_pack_rows_kernel_matches_ref(card, n):
+    on_card, host = _lz4_planes_on(card, n, seed=n)
+    mw = lp.lz4_max_words(n)
+    want = lp.lz4_pack_rows_ref(*host, max_words=mw)
+    before = cuda_pack.LAUNCHES["lz4_pack_rows"]
+    got = lp.lz4_pack_rows(*on_card, max_words=mw)
+    assert _lz4_same(got, want)
+    assert cuda_pack.LAUNCHES["lz4_pack_rows"] == before + 1
+    # the 269- and 270-literal runs fit an emission, the 271 does not
+    assert want[2].tolist() == [True, True, True, False, True, True]
+    assert want[0][:5].any() and not want[0][3].any()
+
+
+def test_lz4_pack_rows_kernel_scalar_path_and_short_rows(card):
+    """Rows whose length is not a multiple of 16 and planes off their
+    alignment take the kernel's scalar loads; max_words cuts a row
+    short."""
+    on_card, host = _lz4_planes_on(card, 1024, seed=3)
+    cut = [p[:, :1001].contiguous() for p in on_card]
+    cut_host = [p.cpu() for p in cut]
+    for mw in (lp.lz4_max_words(1001), 37):
+        assert _lz4_same(lp.lz4_pack_rows(*cut, max_words=mw),
+                         lp.lz4_pack_rows_ref(*cut_host, max_words=mw))
+    moved = []
+    for a in on_card:
+        flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=card)
+        flat[1:] = a.reshape(-1)
+        moved.append(flat[1:].reshape(a.shape))
+    mw = lp.lz4_max_words(1024)
+    assert _lz4_same(lp.lz4_pack_rows(*moved, max_words=mw),
+                     lp.lz4_pack_rows_ref(*host, max_words=mw))
+
+
+def test_lz4_pack_rows_refuses_what_the_kernel_does_not_take(card):
+    on_card, host = _lz4_planes_on(card, 1024)
+    with pytest.raises(ValueError):          # one plane left on the host
+        lp.lz4_pack_rows(*on_card[:4], host[4], max_words=600)
+    with pytest.raises(ValueError):          # a row past shared memory
+        lp.lz4_pack_rows(*on_card, max_words=lp.MAX_SMEM // 4)
+
+
+@pytest.mark.parametrize("kind", ["lz4-token", "lz4-device-pack", "lz4s",
+                                  "level6-device-pack", "level6-token"])
+def test_lz4_and_level6_sessions_on_card_match_cpu(card, monkeypatch, kind):
+    """Both engines held on one route: the CPU's and the card's bytes
+    agree, and the output decodes."""
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch import postproc
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
+    from corpus import make_corpus
+    c = make_corpus()
+    data = c["text"][:300000] + c["binary"][:100000] + c["noise"][:50000]
+    held = kind.endswith("device-pack")
+    monkeypatch.setattr(CudaEngine, "packs_on_device",
+                        lambda self, s, algorithm="deflate": held)
+    outs = []
+    for device in ("cpu", "cuda"):
+        sess = qz.QzSession(device=device)
+        if kind.startswith("lz4s"):
+            p = qz.SessionParamsLZ4S()
+            p.qzCallback = postproc.zstd_callback
+            sess.setup_lz4s(p)
+        elif kind.startswith("lz4"):
+            sess.setup_lz4()
+        else:
+            p = qz.SessionParamsDeflate()
+            p.common.comp_lvl = 6
+            sess.setup_deflate(p)
+        outs.append(sess.compress(data))
+        if kind == "lz4s":
+            assert postproc.zstd_decompress(outs[-1]) == data
+        else:
+            assert sess.decompress(outs[-1]) == data
+    assert outs[0] == outs[1]

@@ -23,7 +23,9 @@ tolerance is 0 throughout:
 Few row shapes (JAX-CPU compiles each route once per shape).
 """
 
+import ctypes
 import functools
+import gc
 import zlib
 
 import numpy as np
@@ -39,6 +41,19 @@ from qatzip_tpu_torch.ops import cuda_pack
 from qatzip_tpu_torch.ops import deflate_pack as dp
 from qatzip_tpu_torch.parallel.dispatch import plan_tile
 from test_torch_cuda import PACK_PLANES, _max_words, pack_args, pack_plane
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _return_freed_memory():
+    """Give what this module held back to the system when it ends: the
+    test runner keeps each worker process for many files, JAX keeps every
+    compiled program, and glibc keeps freed pages (a file's several GB
+    would pile up)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
 
 N = 2048
 

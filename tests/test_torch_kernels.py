@@ -15,6 +15,9 @@ The CUDA kernels themselves are compared with their plain versions on
 the card by tests/test_torch_cuda.py.
 """
 
+import ctypes
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +33,18 @@ from test_torch_cuda import PARSE_PLANES, k2_window, parse_plane
 
 # one jit for every parse test, so each (seg, nseg, b) compiles once
 _jax_parse_scan = jax.jit(_parse_scan, static_argnums=(2, 3, 4))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _return_freed_memory():
+    """Give what this module held back to the system when it ends: the
+    test runner keeps each worker process for many files, JAX keeps every
+    compiled program, and glibc keeps freed pages (a file's several GB
+    would pile up)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def _k2_inputs(w, rows, ctx_words, seed):

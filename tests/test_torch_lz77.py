@@ -7,12 +7,20 @@ must be identical (tolerance 0), and so must ``ml`` from ``_analyze``,
 and ``dist`` wherever ``ml > 0`` (the JAX sort route leaves other values
 in ``dist`` where nothing matched).
 
-Two shapes, each compiled once by JAX:
+Four shapes, each compiled once by JAX:
   * n = 16384 segmented: 8K windows, overlap 896, compaction segments of
     512, ctx 3, probes 7 (the level-1 knobs of 64 KiB chunks);
-  * n = 4096 full row: ctx 4, probes 6 (the knobs of small chunks).
+  * n = 4096 full row: ctx 4, probes 6 (the knobs of small chunks),
+    through the candidate kernel's plain version;
+  * n = 16384 and n = 65536 full row: ctx 4, probes 6, compaction segments
+    of 512 (the knobs of levels >= 6), through the full-row search, on
+    rows that add an all-zero row (one hash bucket) to the others (among
+    them a 37-byte and an empty row: nearly every position in the
+    overflow bucket, and lengths that are not powers of two).
 """
 
+import ctypes
+import gc
 import zlib
 
 import numpy as np
@@ -27,16 +35,32 @@ from qatzip_tpu_torch.ops import lz77 as tlz
 
 from tests.corpus import json_like, text_like
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _return_freed_memory():
+    """Give what this module held back to the system when it ends: the
+    test runner keeps each worker process for many files, JAX keeps every
+    compiled program, and glibc keeps freed pages (a file's several GB
+    would pile up)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
 SHAPES = {
     "seg16k": (16384, dict(search_seg=8192, search_overlap=896,
                            compact_seg=512, ctx_words=3, probes=7)),
     "row4k": (4096, dict(ctx_words=4, probes=6)),
+    "fullrow16k": (16384, dict(compact_seg=512, ctx_words=4, probes=6)),
+    "fullrow64k": (65536, dict(compact_seg=512, ctx_words=4, probes=6)),
 }
 
 
-def _batch(n):
+def _batch(n, zero_row=False):
     """_mixed_batch-style rows (repeats, noise, DNA, records) plus two
-    corpus rows; a short row and an empty row exercise the length edges."""
+    corpus rows; a short row and an empty row exercise the length edges;
+    ``zero_row`` adds a full row of zero bytes."""
     rng = np.random.default_rng(7)
     rec = bytes(rng.integers(0, 256, 333, dtype=np.uint8))
     rows = [
@@ -47,9 +71,10 @@ def _batch(n):
         np.frombuffer(text_like(n + 64, seed=3)[:n], np.uint8),
         np.frombuffer(json_like(n + 64, seed=5)[:n], np.uint8),
     ]
-    data = np.zeros((8, n), np.uint8)
+    data = np.zeros((8 + zero_row, n), np.uint8)
     data[:6] = np.stack(rows)
-    lengths = np.array([n, n, n - 700, n, n, n - 1, 37, 0], np.int32)
+    lengths = np.array([n, n, n - 700, n, n, n - 1, 37, 0] + [n] * zero_row,
+                       np.int32)
     for i, ln in enumerate(lengths):
         data[i, ln:] = 0
     return data, lengths
@@ -59,7 +84,7 @@ def _batch(n):
 def case(request):
     """JAX's tokens and analysis planes for one shape, computed once."""
     n, kw = SHAPES[request.param]
-    data, lengths = _batch(n)
+    data, lengths = _batch(n, zero_row=request.param.startswith("fullrow"))
     seg = min(8192, n)
     akw = {k: v for k, v in kw.items() if k != "compact_seg"}
 
@@ -119,9 +144,14 @@ def test_tokens_rebuild_and_pack(case):
 
 
 def test_level6_full_row_search_is_refused():
-    from qatzip_tpu_torch import QzError, QZ_PARAMS
+    """The candidate kernel's windows refuse a whole row over 8192: such
+    rows (levels >= 6, the LZ4 device pack) take the full-row search."""
     data = torch.zeros((1, 16384), dtype=torch.uint8)
-    with pytest.raises(QzError) as e:
-        tlz.lz77_tokenize(data, torch.tensor([16384], dtype=torch.int32),
-                          n=16384)
-    assert e.value.rc == QZ_PARAMS and "full-row" in str(e.value)
+    lengths = torch.tensor([16384], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tlz._search_inputs(data, lengths, n=16384, min_match=4,
+                           window=32768, ctx_words=4)
+    toks, ntok = tlz.lz77_tokenize(data, lengths, n=16384)
+    src = bytes(16384)
+    assert tlz.tokens_to_bytes(toks[0].numpy().view(np.uint32),
+                               int(ntok[0]), src) == src
