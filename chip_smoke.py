@@ -27,7 +27,14 @@ exits non-zero without the final line:
      planes, emission planes, cumsum and 256-position group pack), and on
      adversarial planes (b"A" * n: back-to-back 273-matches with their
      own tokens; literal runs of exactly 269, 270 and 271, a length that
-     is not a multiple of 4, an empty row);
+     is not a multiple of 4, an empty row); the four kernels of the probe
+     tool (lane and sublane gathers, the lane-roll sum, the 128-lane
+     bitonic sort) on the tool's own inputs at its default shapes (B =
+     128) and on adversarial ones (gather indices all 0 or all C - 1, roll
+     shifts 0 and 127, sort keys from 8 values with bit 31 set, all-equal,
+     sorted and reverse-sorted rows), each also against one PyTorch call
+     (torch.gather, seven torch.roll summed, torch.sort with its payload
+     gathered);
   4. the device time of the tokenizer layer on the full tiles, then the
      paths, each a 64 MiB request through QzSession(device="cuda") with
      the launch counts set to 0 just before and read just after: the
@@ -42,10 +49,18 @@ exits non-zero without the final line:
      decoder, the zstd frames with libzstd; the session decodes the whole,
      a second compress gives the same bytes, and every kernel of the path
      was launched; the path line gives the peak device memory of the two
-     compresses. Then each path's breakdown and a profile of one compress;
+     compresses. Then each path's breakdown and a profile of one compress.
+     Then three more paths, launch counts again zeroed before and read
+     after each: devprims (the probe tool's main at its defaults, which
+     launches the four probe kernels; it prints its own lines), the row
+     split (the 64 MiB request in 256 KiB chunks, four 64 KiB rows each,
+     on a dynamic session: stock zlib decodes every member and the first
+     1 MiB equals the CPU session's) and one QZ_AUTO_SELECT_BEST request
+     (its pick and size);
   5. the first 1 MiB through device="cpu" and device="cuda" on each
      path, both engines held on it: same bytes;
-  6. the kernel summary line, the card line, and {"ok": true, ...}.
+  6. the kernel summary line (ten kernels), the card line, and
+     {"ok": true, ...}.
 
 It imports neither jax nor the JAX package.
 """
@@ -85,7 +100,13 @@ PATHS = [
 # (dynamic) session on the card, which runs five kernels; the LZ4 byte
 # packer's launches come from the LZ4 device pack's path
 MAIN_PATH = "dynamic-device-pack"
-HOME_PATH = {"lz4_pack_rows": "lz4-device-pack"}
+# the probe kernels run on no codec path: their home is the devprims path,
+# the probe tool's run
+DEVPRIMS_KERNELS = ("lane_gather", "sublane_gather", "roll_sum", "bitonic128")
+HOME_PATH = {"lz4_pack_rows": "lz4-device-pack",
+             **{k: "devprims" for k in DEVPRIMS_KERNELS}}
+# the row split's chunk size (four 64 KiB rows a chunk)
+SPLIT_HW = 262144
 # the paths that search whole 64 KiB rows (the full-row search)
 FULL_ROW_PATHS = ("lz4-device-pack", "level6-dynamic-device-pack")
 
@@ -132,6 +153,24 @@ def device_cost(fn):
     ops = sum(e.count for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA)
     return ops, peak
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of one run of ``fn`` over ``reps`` runs: the CUDA
+    activity the profiler records, without the gaps between launches
+    (which ``event_ms`` counts, and which set the time of a kernel whose
+    work is shorter than its launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / reps / 1e3
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -260,6 +299,134 @@ def lz4_adversarial(n: int, kind: str, rows: int):
     return data, lengths
 
 
+def probe_kernels(dev, b: int, record, adversarial, res) -> None:
+    """The probe kernels of the devprims tool at its shapes for batch
+    ``b`` (its default is 128), on the tool's own inputs, then on
+    adversarial ones, each against its plain version (``record`` keeps
+    the kernel's main entry in ``res``, ``adversarial`` the others) and
+    against one PyTorch library call: its full output where ties cannot
+    occur, the bitonic sort's keys, and its payload on rows without
+    ties."""
+    import numpy as np
+    import torch
+    from qatzip_tpu_torch.ops import devprims as dv
+    from qatzip_tpu_torch.tools import devprims as dvtool
+    host = dvtool.inputs(b)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+    def probe(name, label, kern, ref, lib, exact, nbytes, ops, shape,
+              replaces=None):
+        """One probe kernel on one input against its plain version and
+        the library call; ``replaces`` records it as the kernel's main
+        entry, otherwise it is kept beside it under ``label``."""
+        got = kern()
+        err = max_err(got, ref())
+        check(exact(got, lib()), f"{name} ({label}) and its library call "
+              "disagree")
+        ms, plain_ms = event_ms(kern, 20), event_ms(ref, 3)
+        lib_ms = event_ms(lib, 20)
+        dev_ms, lib_dev_ms = device_ms(kern, 20), device_ms(lib, 20)
+        if replaces is not None:
+            record(name, "devprims.cu", replaces, err, ms, plain_ms, lib_ms,
+                   nbytes, ops, shape)
+            entry = res[name]
+        else:
+            adversarial(name, label, shape, err, ms, plain_ms)
+            entry = res[name]["adversarial"][-1]
+            entry["library_ms"] = lib_ms
+        entry.update(device_ms=dev_ms, library_device_ms=lib_dev_ms)
+        print(f"kernel {name} {shape} {label or ''}: device time a launch "
+              f"(profiler) {dev_ms:.4f} ms, the library call's "
+              f"{lib_dev_ms:.4f} ms")
+
+    for case, axis, label in (("pl_gather_lane_wide", 1, "wide"),
+                              ("pl_gather_lane", 1, None),
+                              ("pl_gather_sublane", 0, None)):
+        x, idx = put(host[f"{case}_x"]), put(host[f"{case}_idx"])
+        name = "lane_gather" if axis == 1 else "sublane_gather"
+        kern_f = dv.lane_gather if axis == 1 else dv.sublane_gather
+        ref_f = dv.lane_gather_ref if axis == 1 else dv.sublane_gather_ref
+        cases = [(label, idx)]
+        if case == "pl_gather_lane":
+            cases += [("idx 0", torch.zeros_like(idx)),
+                      ("idx C - 1", torch.full_like(idx, x.shape[1] - 1))]
+        for lab, ix in cases:
+            ix64 = ix.to(torch.int64)
+            if lab == "wide":           # kept until the main entry exists
+                wide = (x, ix, ix64)
+                continue
+            probe(name, lab, lambda x=x, ix=ix: kern_f(x, ix),
+                  lambda x=x, ix=ix: ref_f(x, ix),
+                  lambda x=x, ix64=ix64, a=axis: torch.gather(x, a, ix64),
+                  torch.equal, x.numel() * 12, x.numel(), tuple(x.shape),
+                  None if lab else "tools/devprims.py:124")
+        if case == "pl_gather_lane":
+            x, ix, ix64 = wide
+            probe(name, "wide (8192, 1024)", lambda: kern_f(x, ix),
+                  lambda: ref_f(x, ix), lambda: torch.gather(x, 1, ix64),
+                  torch.equal, x.numel() * 12, x.numel(), tuple(x.shape))
+    del x, idx, ix, ix64, wide
+
+    x512 = put(host["x512"])
+
+    def roll_lib(ks):
+        def run():
+            acc = x512.clone()
+            for k in ks:
+                acc += torch.roll(x512, k, 1)
+            return acc
+        return run
+    probe("roll_sum", None, lambda: dv.roll_sum(x512),
+          lambda: dv.roll_sum_ref(x512), roll_lib(dv.STATIC_SHIFTS),
+          torch.equal, x512.numel() * 8, x512.numel() * 7,
+          tuple(x512.shape), "tools/devprims.py:158")
+    for label, ks in (("dynamic shifts (1, 3, 9, 27, 31, 77, 111)",
+                       dvtool.DYN_SHIFTS), ("dynamic shifts 0 and 127",
+                                            (0, 127))):
+        sh = torch.tensor(ks, dtype=torch.int32, device=dev)
+        probe("roll_sum", label, lambda sh=sh: dv.roll_sum(x512, sh),
+              lambda sh=sh: dv.roll_sum_ref(x512, sh), roll_lib(ks),
+              torch.equal, x512.numel() * 8, x512.numel() * len(ks),
+              tuple(x512.shape))
+
+    rows = dvtool.N // 128 * b
+    k_main = put(host["keys"].reshape(rows, 128))
+    v_main = put(host["ctx0"].reshape(rows, 128))
+    rng = np.random.default_rng(31)
+    ties = np.array([0, 7, 1 << 20, 0x7FFFFFFF, 1 << 31, (1 << 31) + 7,
+                     0xFFFFFFF0, 0xFFFFFFFF], np.uint32)
+    rand = rng.integers(0, 1 << 32, (rows, 128), dtype=np.uint32)
+    for label, keys in ((None, k_main),
+                        ("keys from 8 values, bit 31 set in half",
+                         put(ties[rng.integers(0, 8, (rows, 128))])),
+                        ("all-equal rows", put(np.repeat(rand[:, :1], 128,
+                                                         axis=1))),
+                        ("sorted rows", put(np.sort(rand, axis=1))),
+                        ("reverse-sorted rows",
+                         put(np.sort(rand, axis=1)[:, ::-1]))):
+        k64 = keys.to(torch.int64) & 0xFFFFFFFF
+
+        def sort_lib(k64=k64):
+            ks, order = torch.sort(k64, dim=1)
+            return ks, torch.gather(v_main, 1, order)
+
+        def same_keys(got, lib):
+            """Keys as torch.sort's; payloads on the rows without ties."""
+            ks, vs = lib
+            free = ~(ks[:, 1:] == ks[:, :-1]).any(1)
+            return (torch.equal(got[0].to(torch.int64) & 0xFFFFFFFF, ks)
+                    and torch.equal(got[1][free], vs[free]))
+        probe("bitonic128", label,
+              lambda keys=keys: dv.bitonic128(keys, v_main),
+              lambda keys=keys: dv.bitonic128_ref(keys, v_main), sort_lib,
+              same_keys, rows * 128 * 16,
+              # 28 stages of a compare and two selects a position
+              rows * 128 * 28 * 3, (rows, 128),
+              None if label else "tools/devprims.py:222")
+
+
 def gunzip_members(blob: bytes):
     """Stock zlib over concatenated gzip members (wbits 31)."""
     out, rest, members = [], blob, 0
@@ -287,7 +454,9 @@ def main() -> None:
     from qatzip_tpu_torch.parallel.dispatch import TILE_B, _tok_knobs, plan_tile
     from qatzip_tpu_torch.formats.lz4_format import (parse_lz4_frame_header,
                                                      walk_lz4_blocks)
+    from qatzip_tpu_torch.sw.codec import sw_compress
     from qatzip_tpu_torch.sw.lz4_py import lz4_decompress_block_py
+    from qatzip_tpu_torch.tools import devprims as dvtool
     # by path: a package named "tests" installed elsewhere may shadow ours
     spec = importlib.util.spec_from_file_location("qz_corpus", os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "tests", "corpus.py"))
@@ -662,6 +831,9 @@ def main() -> None:
         del adv
     torch.cuda.empty_cache()
 
+    probe_kernels(dev, 128, record, adversarial, res)
+    torch.cuda.empty_cache()
+
     # -- 4. the tokenizer layer, then the paths ------------------------------------------
     full = len(data) // (TILE_B * n)           # full tiles only
 
@@ -881,6 +1053,77 @@ def main() -> None:
           f"{ratio_by_path['lz4-device-pack']:.4f}; the engine on the card "
           f"takes the {'device pack' if pick else 'token path'}")
 
+    # the devprims path: the probe tool's main at its defaults (B = 128),
+    # which runs the four probe kernels beside their library calls
+    cuda_pack.reset_launch_counts()
+    t0 = time.perf_counter()
+    tool_lines = dvtool.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    tool_s = time.perf_counter() - t0
+    launches = dict(cuda_pack.LAUNCHES)
+    launches_by_path["devprims"] = launches
+    check(all(launches[k] > 0 for k in DEVPRIMS_KERNELS),
+          f"devprims: a probe kernel never launched: {launches}")
+    check(len(tool_lines) == 14 and tool_lines[-1]["ok"],
+          "devprims: the tool did not run every case")
+    print(f"path devprims: {len(tool_lines)} cases in {tool_s:.2f} s; "
+          f"launches {launches}")
+
+    # the row split: 256 KiB chunks, each cut into four 64 KiB rows, on
+    # the dynamic device pack (the card's own route for the session)
+    p = qz.SessionParamsDeflate()
+    p.common.hw_buff_sz = SPLIT_HW
+    sess = qz.QzSession(device="cuda")
+    check(sess.setup_deflate(p) == qz.QZ_OK, "setup_deflate failed")
+    cuda_pack.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sess.compress(data)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(cuda_pack.LAUNCHES)
+    launches_by_path["split-256k-dynamic"] = launches
+    check(all(launches[k] > 0 for k in PATHS[2][4]),
+          f"split: a kernel of the path never launched: {launches}")
+    plain, members = gunzip_members(out)
+    check(plain == data and members == -(-len(data) // SPLIT_HW),
+          f"split: stock zlib gives {members} members that differ")
+    t0 = time.perf_counter()
+    check(sess.compress(data) == out, "split: a second compress differs")
+    warm_s = time.perf_counter() - t0
+    head = data[:1 << 20]
+    set_route(True)                      # the CPU engine on the same route
+    cpu = qz.QzSession(device="cpu")
+    cpu.setup_deflate(p)
+    cpu_head = cpu.compress(head)
+    set_route(None)
+    check(out[:len(cpu_head)] == cpu_head, "split: the first 1 MiB's "
+          "members differ from the CPU session's")
+    print(f"path split-256k-dynamic: {len(data)} bytes -> {len(out)} "
+          f"({members} members of {SPLIT_HW} bytes, stock zlib decodes them; "
+          f"the first 1 MiB equal to the CPU session's), ratio "
+          f"{len(data) / len(out):.4f}; compress cold {cold_s:.3f} s, warm "
+          f"{warm_s:.3f} s = {len(data) / warm_s / 1e9:.4f} GB/s against "
+          f"the 64 KiB dynamic path's {warm_by_path[MAIN_PATH]:.4f}; "
+          f"launches {launches}")
+
+    # one QZ_AUTO_SELECT_BEST request: the smaller of the engine's output
+    # and the software coder's
+    p = qz.SessionParamsDeflate()
+    p.common.sw_backup = qz.QZ_AUTO_SELECT_BEST
+    sess = qz.QzSession(device="cuda")
+    check(sess.setup_deflate(p) == qz.QZ_OK, "setup_deflate failed")
+    t0 = time.perf_counter()
+    out = sess.compress(data)
+    auto_s = time.perf_counter() - t0
+    sw_out, _crc = sw_compress(data, qz.DataFormat.DEFLATE_GZIP_EXT, 1, n)
+    pick = "software" if out == sw_out else "engine"
+    check(gunzip_members(out)[0] == data, "auto-select: stock zlib does not "
+          "give back the input")
+    check(len(out) <= len(sw_out), "auto-select: the larger output won")
+    print(f"path auto-select-best: {len(data)} bytes -> {len(out)} (pick "
+          f"{pick}; software {len(sw_out)} bytes), {auto_s:.3f} s")
+    del out, sw_out, plain
+
     # -- 5. CPU and CUDA agree ---------------------------------------------------
     head = data[:1 << 20]
     for name, kind, level, route, _k in PATHS:
@@ -906,8 +1149,8 @@ def main() -> None:
         entry["launches"] = launches_by_path[HOME_PATH.get(name,
                                                            MAIN_PATH)][name]
         check(entry["launches"] > 0, f"{name} never launched on its path")
-        entry["launches_by_path"] = {p: launches_by_path[p][name]
-                                     for p, *_ in PATHS}
+        entry["launches_by_path"] = {p: c[name]
+                                     for p, c in launches_by_path.items()}
     print(json.dumps({"kernels": list(res.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

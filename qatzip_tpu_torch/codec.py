@@ -6,7 +6,8 @@ cut into ``hw_buff_sz`` chunks (at most 64 KiB for LZ4 and LZ4s), the
 engine returns one (payload, crc32) per chunk in order, and the chunks
 are framed: a member each for the gzip framings, one stream for raw and
 zlib, one LZ4 frame (blocks that did not shrink stored), or the LZ4s
-block stream.
+block stream. With ``QZ_AUTO_SELECT_BEST`` an engine's request is also
+compressed in software, and the smaller output is returned.
 
 Decompression: strict gzip-ext members are walked natively and inflated
 in one GIL-free batched call; other gzip and 4-byte members take the
@@ -18,10 +19,10 @@ walks do not take, go through the software walk (``sw/codec.py``).
 from __future__ import annotations
 
 import struct
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from .constants import (DataFormat, LZ4_BLOCK_UNCOMPRESSED_FLAG,
-                        QZ_DATA_ERROR, QzError)
+                        QZ_AUTO_SELECT_BEST, QZ_DATA_ERROR, QzError)
 from .engines import host_engine
 from .formats.gzip_format import (output_footer_gen, output_header_gen,
                                   scan_members)
@@ -96,27 +97,36 @@ def _frame_results(data: bytes, chunks: List[bytes], results,
 
 
 def compress_buffer(data: bytes, *, data_fmt: DataFormat, level: int,
-                    hw_buff_sz: int, engine, algorithm: str = "deflate",
-                    input_sz_thrshold: int = 1024, mini_match: int = 3,
+                    hw_buff_sz: int, engine=None, algorithm: str = "deflate",
+                    sw_backup: int = 1, input_sz_thrshold: int = 1024,
+                    mini_match: int = 3,
                     huffman_static: bool = False) -> Tuple[bytes, int]:
     """Compress one request. Returns (framed output, crc32 of input).
 
-    A request shorter than ``input_sz_thrshold`` is compressed in
-    software, the reference's size gate (src/qatzip.c:2098-2116)."""
+    ``engine=None``, or a request shorter than ``input_sz_thrshold``, is
+    compressed in software (the host engine), the reference's size gate
+    (src/qatzip.c:2098-2116). With ``sw_backup == QZ_AUTO_SELECT_BEST``
+    an engine's output is set beside ``sw_compress``'s and the smaller
+    one returned, per request (include/qatzip.h:606-621)."""
     if algorithm not in ALGORITHMS:
         raise QzError(QZ_DATA_ERROR, f"unknown algorithm {algorithm}")
     counters = get_counters()
-    if len(data) < input_sz_thrshold:
-        counters.bump("sw_compress", 1, len(data))
-        engine = host_engine
-    else:
-        counters.bump("hw_compress", 1, len(data))
+    use_engine = engine is not None and len(data) >= input_sz_thrshold
+    counters.bump("hw_compress" if use_engine else "sw_compress", 1,
+                  len(data))
     chunks, finals = _request_chunks(data, algorithm, data_fmt, hw_buff_sz)
-    results = engine.compress_chunks(chunks, level=level, algorithm=algorithm,
-                                     final_flags=finals,
-                                     mini_match=mini_match,
-                                     huffman_static=huffman_static)
-    return _frame_results(data, chunks, results, algorithm, data_fmt)
+    results = (engine if use_engine else host_engine).compress_chunks(
+        chunks, level=level, algorithm=algorithm, final_flags=finals,
+        mini_match=mini_match, huffman_static=huffman_static)
+    out, crc = _frame_results(data, chunks, results, algorithm, data_fmt)
+    if use_engine and sw_backup == QZ_AUTO_SELECT_BEST:
+        sw_fmt = {"lz4": DataFormat.LZ4, "lz4s": DataFormat.LZ4S}.get(
+            algorithm, data_fmt)
+        sw_out, sw_crc = swc.sw_compress(data, sw_fmt, level, hw_buff_sz,
+                                         mini_match=mini_match)
+        if len(sw_out) < len(out):
+            return sw_out, sw_crc
+    return out, crc
 
 
 # ---------------------------------------------------------------------------
@@ -124,10 +134,16 @@ def compress_buffer(data: bytes, *, data_fmt: DataFormat, level: int,
 # ---------------------------------------------------------------------------
 
 def decompress_buffer(data: bytes, *, data_fmt: DataFormat,
-                      algorithm: str = "deflate") -> Tuple[bytes, int, int]:
+                      algorithm: str = "deflate",
+                      max_out: Optional[int] = None
+                      ) -> Tuple[bytes, int, int]:
     """Decompress one request. Returns (out, consumed, crc32(out)); raises
     QZ_DATA_ERROR on malformed input, or a member checksum or size that
-    does not match."""
+    does not match. When gzip-ext members declare more than ``max_out``
+    bytes in all, the software walk decodes them and stops after the
+    member that reaches it (qzDecompressExt's bound on the destination,
+    src/qatzip.c:2909); the other walks decode every member, as in the
+    JAX package."""
     counters = get_counters()
     if algorithm == "lz4":
         return _decompress_lz4(data)
@@ -135,13 +151,16 @@ def decompress_buffer(data: bytes, *, data_fmt: DataFormat,
         raise QzError(QZ_DATA_ERROR, "LZ4S decode is a post-process input")
     if data_fmt in (DataFormat.DEFLATE_RAW, DataFormat.ZLIB):
         counters.bump("sw_decompress", 1, len(data))
-        return swc.sw_decompress_multi(data, data_fmt)
+        return swc.sw_decompress_multi(data, data_fmt, max_out)
     from . import native
     lib = native.get_lib()
     if data_fmt == DataFormat.DEFLATE_GZIP_EXT and len(data):
         scanned = lib.scan_gzipext(data)
         if scanned is not None and scanned[4] == len(data) and len(scanned[0]):
             in_offs, in_lens, sizes, want_crcs, consumed = scanned
+            if max_out is not None and int(sizes.sum()) > max_out:
+                counters.bump("sw_decompress_fallback", 1, len(data))
+                return swc.sw_decompress_multi(data, data_fmt, max_out)
             out, crcs, out_lens, in_used = lib.inflate_batch_bytes(
                 data, in_offs, in_lens, sizes)
             if (out_lens == sizes).all() and (in_used == in_lens).all():
@@ -151,12 +170,12 @@ def decompress_buffer(data: bytes, *, data_fmt: DataFormat,
                 return out, consumed, crc32_combine_many(
                     [int(c) for c in crcs], sizes.tolist())
             counters.bump("sw_decompress_fallback", 1, len(data))
-            return swc.sw_decompress_multi(data, data_fmt)
+            return swc.sw_decompress_multi(data, data_fmt, max_out)
 
     members = scan_members(data, data_fmt)
     if not members:
         counters.bump("sw_decompress", 1, len(data))
-        return swc.sw_decompress_multi(data, data_fmt)
+        return swc.sw_decompress_multi(data, data_fmt, max_out)
     sizes = [m.uncompressed_sz for m in members]
     consumed = members[-1].offset + members[-1].total_sz
     if all(s >= 0 for s in sizes):
@@ -176,7 +195,7 @@ def decompress_buffer(data: bytes, *, data_fmt: DataFormat,
             return out, consumed, crc32_combine_many([int(c) for c in crcs],
                                                      sizes)
     counters.bump("sw_decompress_fallback", 1, len(data))
-    return swc.sw_decompress_multi(data, data_fmt)
+    return swc.sw_decompress_multi(data, data_fmt, max_out)
 
 
 def _decompress_lz4(data: bytes) -> Tuple[bytes, int, int]:

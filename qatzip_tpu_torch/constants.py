@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import enum
 
+#: the API version the session reports among its software components
+API_VERSION = "2.3-torch"
+
 
 class HuffmanHdr(enum.IntEnum):
     """Huffman header type (reference ``QzHuffmanHdr_T``)."""
@@ -43,6 +46,16 @@ class PollingMode(enum.IntEnum):
 
     PERIODICAL_POLLING = 0
     BUSY_POLLING = 1
+
+
+class SessionState(enum.IntEnum):
+    """Session state (reference qatzip_internal.h session states)."""
+
+    QZ_NONE = 0
+    QZ_INIT_HW = 1
+    QZ_INIT_SW = 2
+    QZ_SETUP_HW = 3
+    QZ_SETUP_SW = 4
 
 
 # Return codes (reference include/qatzip.h, numeric parity).

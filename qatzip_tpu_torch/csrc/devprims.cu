@@ -1,0 +1,232 @@
+// The primitive probes of qatzip_tpu_torch/tools/devprims.py: gathers,
+// lane rolls and a 128-lane bitonic sort of 32-bit words.
+//
+// Replace the Pallas kernels of tools/devprims.py, which timed the TPU
+// primitives behind the sort-based Pallas design:
+//   lane_gather     pl_gather.go (axis 1), :124 -> :125: out[r, c] =
+//                   x[r, idx[r, c]] on (R, 128) and (8192, 1024) planes;
+//   sublane_gather  pl_gather.go (axis 0): out[r, c] = x[idx[r, c], c] on
+//                   (512, 128);
+//   roll_sum        roll_static :158 -> :159 and roll_dyn :178 -> :179:
+//                   x + sum over k of roll(x, k, 1) on (4096, 128), with
+//                   roll(x, k, 1)[c] = x[(c - k) mod 128] as jnp.roll;
+//   bitonic128      bitonic :222 -> :223 (and the spot check at :247): the
+//                   28-stage network of bitonic_kern (:196-219) on each
+//                   128-lane row, keys compared as uint32, one payload.
+//
+// On the TPU these were the costs to measure: a lane gather
+// (tpu.dynamic_gather), a sublane gather, a lane roll with a static or a
+// run-time shift. On Hopper the counterparts are a gather from shared
+// memory (bank conflicts of random indices), a gather from L2, and warp
+// shuffles. Every kernel here is bound by device memory: each word in and
+// out once (lane gathers 12 bytes a position, rolls 8, the bitonic sort
+// 16), and the probes' planes are small, so the rolls and the sublane
+// gather are bound by the launch.
+//
+// Design, simple first:
+//   lane_gather    one CTA per tile of rows (32 KB of shared memory: 64
+//                  rows at width 128, 8 at width 1024), staged with
+//                  coalesced loads; idx read and out written coalesced,
+//                  smem[idx] read with whatever bank conflicts idx gives;
+//   sublane_gather one thread per position, the row read from global
+//                  memory: the (512, 128) plane is 256 KB, more than a
+//                  CTA's 227 KB of shared memory, and sits in L2;
+//   roll_sum       one warp per row, 4 words a thread (column 32 s + lane
+//                  in slot s); a shift k = 32 a + b reads lane (lane - b)
+//                  mod 32 of every slot with one __shfl_sync each, and a
+//                  thread takes slot (s - a) mod 4, or (s - a - 1) mod 4
+//                  where lane < b. The static variant's shifts (1, 2, 4,
+//                  ..., 64) are compile-time constants; the dynamic one
+//                  reads its shifts from a device tensor into shared
+//                  memory first, so the compiler cannot see them;
+//   bitonic128     one warp per row, 4 (key, payload) pairs a thread in
+//                  registers; the partner of column c is c ^ j: for
+//                  j <= 16 the same slot of lane ^ j (__shfl_xor_sync), for
+//                  j = 32, 64 the same thread's slot s ^ (j >> 5). Equal
+//                  keys never swap, as in the TPU kernel.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWidth = 128;          // the roll and sort rows
+constexpr int kGatherWords = 8192;   // 32 KB of staged rows a CTA
+constexpr int kMaxShifts = 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kThreads)
+lane_gather_kernel(const uint32_t* __restrict__ x,
+                   const int32_t* __restrict__ idx, uint32_t* __restrict__ out,
+                   int rows, int log_c, int rows_per_cta) {
+  extern __shared__ uint32_t tile[];
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int count = min(rows_per_cta, rows - r0) << log_c;
+  const size_t base = (size_t)r0 << log_c;
+  const int cmask = (1 << log_c) - 1;
+  for (int i = threadIdx.x; i < count; i += kThreads) tile[i] = x[base + i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const int row_off = i & ~cmask;
+    out[base + i] = tile[row_off | (idx[base + i] & cmask)];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sublane_gather_kernel(const uint32_t* __restrict__ x,
+                      const int32_t* __restrict__ idx,
+                      uint32_t* __restrict__ out, int log_r, int log_c) {
+  const size_t total = (size_t)1 << (log_r + log_c);
+  const uint32_t rmask = (1u << log_r) - 1, cmask = (1u << log_c) - 1;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * kThreads) {
+    const uint32_t r = (uint32_t)idx[i] & rmask;
+    out[i] = __ldg(x + ((size_t)r << log_c) + (i & cmask));
+  }
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&t)[4], int j) {
+  return j == 0 ? t[0] : j == 1 ? t[1] : j == 2 ? t[2] : t[3];
+}
+
+// acc[s] += roll(x, k, 1) at column 32 s + lane, for the row in v.
+__device__ __forceinline__ void add_roll(const uint32_t (&v)[4],
+                                         uint32_t (&acc)[4], int k,
+                                         int lane) {
+  const int a = k >> 5, b = k & 31;
+  const int src = (lane - b) & 31;
+  uint32_t t[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = __shfl_sync(kFull, v[j], src);
+  const bool wrap = lane < b;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    acc[s] += pick4(t, wrap ? (s - a - 1) & 3 : (s - a) & 3);
+}
+
+template <bool kStatic>
+__global__ void __launch_bounds__(kThreads)
+roll_sum_kernel(const uint32_t* __restrict__ x,
+                const int32_t* __restrict__ shifts, int nshift,
+                uint32_t* __restrict__ out, int rows) {
+  __shared__ int sh[kMaxShifts];
+  if (!kStatic && threadIdx.x < nshift) sh[threadIdx.x] = shifts[threadIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp: one row per warp
+  const size_t base = (size_t)row * kWidth;
+  uint32_t v[4], acc[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) acc[s] = v[s] = x[base + 32 * s + lane];
+  if (kStatic) {
+#pragma unroll
+    for (int i = 0; i < 7; ++i) add_roll(v, acc, 1 << i, lane);
+  } else {
+    for (int i = 0; i < nshift; ++i) add_roll(v, acc, sh[i] & 127, lane);
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) out[base + 32 * s + lane] = acc[s];
+}
+
+__global__ void __launch_bounds__(kThreads)
+bitonic128_kernel(const uint32_t* __restrict__ keys,
+                  const uint32_t* __restrict__ vals,
+                  uint32_t* __restrict__ kout, uint32_t* __restrict__ vout,
+                  int rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp: one row per warp
+  const size_t base = (size_t)row * kWidth;
+  uint32_t k[4], v[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    k[s] = keys[base + 32 * s + lane];
+    v[s] = vals[base + 32 * s + lane];
+  }
+#pragma unroll
+  for (int size = 2; size <= kWidth; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j >= 1; j >>= 1) {
+      uint32_t nk[4], nv[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t pk, pv;
+        if (j <= 16) {
+          pk = __shfl_xor_sync(kFull, k[s], j);
+          pv = __shfl_xor_sync(kFull, v[s], j);
+        } else {
+          pk = k[s ^ (j >> 5)];
+          pv = v[s ^ (j >> 5)];
+        }
+        const int c = 32 * s + lane;
+        const bool take_min = ((c & j) == 0) == ((c & size) == 0);
+        const bool swap = take_min ? pk < k[s] : pk > k[s];
+        nk[s] = swap ? pk : k[s];
+        nv[s] = swap ? pv : v[s];
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        k[s] = nk[s];
+        v[s] = nv[s];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    kout[base + 32 * s + lane] = k[s];
+    vout[base + 32 * s + lane] = v[s];
+  }
+}
+
+int warp_row_blocks(int rows) { return (rows + kWarps - 1) / kWarps; }
+
+}  // namespace
+
+extern "C" int qz_lane_gather(const void* x, const void* idx, void* out,
+                              int rows, int log_c, void* stream) {
+  const int per_cta = kGatherWords >> log_c;
+  const int blocks = (rows + per_cta - 1) / per_cta;
+  lane_gather_kernel<<<blocks, kThreads, kGatherWords * sizeof(uint32_t),
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out, rows, log_c,
+      per_cta);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qz_sublane_gather(const void* x, const void* idx, void* out,
+                                 int log_r, int log_c, void* stream) {
+  const size_t total = (size_t)1 << (log_r + log_c);
+  const size_t want = (total + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  sublane_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out, log_r, log_c);
+  return (int)cudaGetLastError();
+}
+
+// shifts == nullptr: the static shifts 1, 2, 4, ..., 64.
+extern "C" int qz_roll_sum(const void* x, const void* shifts, int nshift,
+                           void* out, int rows, void* stream) {
+  if (nshift > kMaxShifts) return (int)cudaErrorInvalidValue;
+  if (shifts == nullptr)
+    roll_sum_kernel<true><<<warp_row_blocks(rows), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+        (const uint32_t*)x, nullptr, 0, (uint32_t*)out, rows);
+  else
+    roll_sum_kernel<false><<<warp_row_blocks(rows), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const int32_t*)shifts, nshift, (uint32_t*)out,
+        rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qz_bitonic128(const void* keys, const void* vals, void* kout,
+                             void* vout, int rows, void* stream) {
+  bitonic128_kernel<<<warp_row_blocks(rows), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint32_t*)keys, (const uint32_t*)vals, (uint32_t*)kout,
+      (uint32_t*)vout, rows);
+  return (int)cudaGetLastError();
+}

@@ -22,7 +22,11 @@ what it replaces:
   * ``symbol_histogram`` — TPU kernel k4 (``pallas_pack.py::symbol_histogram``);
   * ``lz4_pack_rows`` — the LZ4 device pack's byte packer, which the JAX
     package ran as XLA ops (``lz4_pack.py:65-143``); its wrapper and plain
-    version live in ``lz4_pack.py``.
+    version live in ``lz4_pack.py``;
+  * ``lane_gather``, ``sublane_gather``, ``roll_sum`` and ``bitonic128``
+    — the probes of ``tools/devprims.py`` (its Pallas gathers, rolls and
+    bitonic sort), which no codec path runs; their wrappers and plain
+    versions live in ``devprims.py``.
 
 32-bit words cross the kernel interface as int32 tensors holding the
 uint32 bit pattern (torch has no full uint32 arithmetic). The plain
@@ -38,7 +42,9 @@ import threading
 import torch
 
 LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "pack_rows": 0,
-            "huffman_lookup": 0, "symbol_histogram": 0, "lz4_pack_rows": 0}
+            "huffman_lookup": 0, "symbol_histogram": 0, "lz4_pack_rows": 0,
+            "lane_gather": 0, "sublane_gather": 0, "roll_sum": 0,
+            "bitonic128": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -71,6 +77,14 @@ def kernels():
             lib.qz_symbol_histogram.argtypes = [vp, vp, vp, ci, ci, vp]
             lib.qz_lz4_pack_rows.restype = ci
             lib.qz_lz4_pack_rows.argtypes = [vp] * 8 + [ci, ci, ci, vp]
+            lib.qz_lane_gather.restype = ci
+            lib.qz_lane_gather.argtypes = [vp, vp, vp, ci, ci, vp]
+            lib.qz_sublane_gather.restype = ci
+            lib.qz_sublane_gather.argtypes = [vp, vp, vp, ci, ci, vp]
+            lib.qz_roll_sum.restype = ci
+            lib.qz_roll_sum.argtypes = [vp, vp, ci, vp, ci, vp]
+            lib.qz_bitonic128.restype = ci
+            lib.qz_bitonic128.argtypes = [vp, vp, vp, vp, ci, vp]
             lib.qz_cuda_error_string.restype = ctypes.c_char_p
             lib.qz_cuda_error_string.argtypes = [ci]
             _lib = lib

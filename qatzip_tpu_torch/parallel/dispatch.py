@@ -23,23 +23,28 @@ paths, as ``CudaEngine.packs_on_device`` picks them:
     bucket, and the host C++ packer (deflate, LZ4 or LZ4s) packs every
     chunk on the host pool while the device works on later tiles.
 
+Chunks over 64 KiB (``hw_buff_sz`` up to 512 KiB) are cut into rows of
+at most 64 KiB, the tokenizer's reach: the rows of a deflate chunk take
+the same route, only its last row carries the chunk's final flag (the
+others end with the full-flush sync), and their payloads are joined into
+one raw stream. LZ4 and LZ4s blocks cannot be joined, so such chunks go
+to the host coder, as in the JAX package.
+
 Results return as (payload, crc32) per chunk in submission order. On
 ``device="cpu"`` the same code runs the kernels' plain versions.
 
-Not ported yet: the row split for chunks over 64 KiB, compress-and-verify,
-the multi-tile scan grouping, the mesh, the device CRC and the device LZ4
-decode.
+Not ported yet: compress-and-verify, the multi-tile scan grouping, the
+mesh, the device CRC and the device LZ4 decode.
 """
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..constants import QZ_NOT_SUPPORTED, QzError
+from ..ops.checksum import crc32
 from ..ops.deflate_pack import (deflate_analyze_hist, deflate_pack_device,
                                 deflate_pack_dynamic, finish_stream,
                                 finish_stream_dynamic)
@@ -89,36 +94,20 @@ def _fetch_bucket(maxv: int, cap: int) -> int:
 
 def _tok_knobs(level: int, n: int):
     """Per-level tokenizer knobs: (search_seg, search_overlap,
-    compact_seg, ctx_words, probes).
+    compact_seg, ctx_words, probes), the JAX package's defaults.
 
     Levels <= 5 window the candidate search (8K windows, 896 overlap)
     and carry 12 bytes of context with 7 probes; levels >= 6 keep the
     full-row search with 16-byte context. Small chunks (n <= 8192)
-    search their whole row with ctx 4 / probes 6. Env overrides:
-    QZTPU_SEARCH_SEG / QZTPU_SEARCH_OV / QZTPU_COMPACT_SEG /
-    QZTPU_CTX_WORDS / QZTPU_PROBES.
-    """
+    search their whole row with ctx 4 / probes 6; rows of at most 512
+    are not compacted in segments (compact_seg 0). No environment
+    variable changes them."""
     fast = level <= 5
-    ss = int(os.environ.get("QZTPU_SEARCH_SEG", "-1"))
-    ov = int(os.environ.get("QZTPU_SEARCH_OV", "-1"))
-    cs = int(os.environ.get("QZTPU_COMPACT_SEG", "-1"))
-    ctx = int(os.environ.get("QZTPU_CTX_WORDS", "-1"))
-    probes = int(os.environ.get("QZTPU_PROBES", "-1"))
-    if ss < 0:
-        ss = 8192 if fast else 0
-    if ov < 0:
-        ov = 896 if fast else 1024
-    if cs < 0:
-        cs = 512
-    if ss >= n:
-        # full reach for small chunks — clamp BEFORE deriving ctx/probes
-        ss = 0
-    if ctx < 0:
-        ctx = 3 if fast and ss else 4
-    if probes < 0:
-        probes = 7 if fast and ss else 6
-    if cs >= n:
-        cs = 0
+    ss = 8192 if fast and 8192 < n else 0
+    ov = 896 if fast else 1024
+    ctx = 3 if ss else 4
+    probes = 7 if ss else 6
+    cs = 512 if 512 < n else 0
     return ss, ov, cs, ctx, probes
 
 
@@ -207,14 +196,13 @@ class CudaEngine:
         LZ4 or LZ4s block. On the token path the deflate host packer runs
         mode 1 (static Huffman) for static sessions, mode 0 (best of
         stored/static/dynamic) otherwise."""
-        if any(len(c) > DEV_MAX for c in chunks):
-            raise QzError(QZ_NOT_SUPPORTED, "chunks over 64 KiB need the "
-                          "device row split, not ported to "
-                          "qatzip_tpu_torch yet")
         if algorithm not in ("deflate", "lz4", "lz4s"):
             raise ValueError(f"unknown algorithm {algorithm}")
         finals = (list(final_flags) if final_flags is not None
                   else [True] * len(chunks))
+        if any(len(c) > DEV_MAX for c in chunks):
+            return self._compress_split(chunks, finals, level, algorithm,
+                                        mini_match, huffman_static)
         n = _pow2_chunk_n(chunks)
         if self.packs_on_device(huffman_static, algorithm):
             if algorithm == "lz4":
@@ -225,6 +213,30 @@ class CudaEngine:
         return self._pack(chunks, finals, 1 if huffman_static else 0,
                           self._tokenize_tiles(chunks, n, level, algorithm),
                           algorithm, mini_match)
+
+    def _compress_split(self, chunks, finals, level: int, algorithm: str,
+                        mini_match: int, huffman_static: bool):
+        """Chunks over DEV_MAX: each deflate chunk cut into rows of at most
+        DEV_MAX bytes, the rows compressed on the session's route with
+        only the chunk's last row final, and each chunk's row payloads
+        joined. LZ4 and LZ4s chunks go to the host coder whole."""
+        if algorithm != "deflate":
+            from ..engines import host_engine
+            return host_engine.compress_chunks(
+                chunks, level=level, algorithm=algorithm, final_flags=finals,
+                mini_match=mini_match, huffman_static=huffman_static)
+        rows, row_finals, counts = [], [], []
+        for chunk, final in zip(chunks, finals):
+            pieces = [chunk[o:o + DEV_MAX]
+                      for o in range(0, len(chunk), DEV_MAX)] or [b""]
+            rows += pieces
+            row_finals += [False] * (len(pieces) - 1) + [final]
+            counts.append(len(pieces))
+        done = iter(self.compress_chunks(
+            rows, level=level, algorithm=algorithm, final_flags=row_finals,
+            mini_match=mini_match, huffman_static=huffman_static))
+        return [(b"".join(next(done)[0] for _ in range(cnt)), crc32(chunk))
+                for chunk, cnt in zip(chunks, counts)]
 
     def _pack(self, chunks, finals, mode: int, tiles,
               algorithm: str = "deflate", mini_match: int = 3):

@@ -1,12 +1,16 @@
-"""Session parameter structs and their validation.
+"""Session parameter structs, their validation and the process defaults.
 
-Counterpart of ``qatzip_tpu/params.py`` for the deflate, LZ4 and LZ4s
-sessions: the same fields, defaults and checks (reference
-``qzCheckParams*``, src/qatzip_utils.c:385-520).
+Counterpart of ``qatzip_tpu/params.py``: the deflate, LZ4 and LZ4s
+params and the legacy combined params, with the same fields, defaults and
+checks (reference ``qzCheckParams*``, src/qatzip_utils.c:385-520), and
+``get_defaults`` / ``set_defaults`` (qz{Get,Set}Defaults*,
+src/qatzip.c:3071-3174). No configuration file overlays the defaults:
+the JAX package's ``.conf`` loader is not ported.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Optional
 
@@ -115,3 +119,60 @@ class SessionParamsLZ4S:
         if self.lz4s_mini_match not in (3, 4):
             return QZ_PARAMS
         return QZ_OK
+
+
+@dataclasses.dataclass
+class SessionParams:
+    """Legacy combined params (``QzSessionParams_T``), deflate only, for
+    the legacy setup (qzSetupSession, src/qatzip.c:1027-1068)."""
+
+    huffman_hdr: HuffmanHdr = HuffmanHdr.DYNAMIC_HDR
+    direction: Direction = C.QZ_DIRECTION_DEFAULT
+    data_fmt: DataFormat = C.QZ_DATA_FORMAT_DEFAULT
+    comp_lvl: int = C.QZ_COMP_LEVEL_DEFAULT
+    comp_algorithm: str = "deflate"
+    max_forks: int = C.QZ_MAX_FORKS_DEFAULT
+    sw_backup: int = C.QZ_SW_BACKUP_DEFAULT
+    hw_buff_sz: int = C.QZ_HW_BUFF_SZ
+    strm_buff_sz: int = C.QZ_STRM_BUFF_SZ_DEFAULT
+    input_sz_thrshold: int = C.QZ_COMP_THRESHOLD_DEFAULT
+    req_cnt_thrshold: int = C.QZ_REQ_THRESHOLD_DEFAULT
+    wait_cnt_thrshold: int = C.QZ_WAIT_CNT_THRESHOLD_DEFAULT
+
+    def to_deflate(self) -> SessionParamsDeflate:
+        common = SessionParamsCommon(
+            direction=self.direction, comp_lvl=self.comp_lvl,
+            comp_algorithm=self.comp_algorithm, max_forks=self.max_forks,
+            sw_backup=self.sw_backup, hw_buff_sz=self.hw_buff_sz,
+            strm_buff_sz=self.strm_buff_sz,
+            input_sz_thrshold=self.input_sz_thrshold,
+            req_cnt_thrshold=self.req_cnt_thrshold,
+            wait_cnt_thrshold=self.wait_cnt_thrshold)
+        return SessionParamsDeflate(common=common,
+                                    huffman_hdr=self.huffman_hdr,
+                                    data_fmt=self.data_fmt)
+
+    def check(self) -> int:
+        """The deflate checks; the legacy API stops at level 9, which it
+        sends to software zlib (src/qatzip.c:2101-2103)."""
+        return self.to_deflate().check()
+
+
+_defaults = {"deflate": SessionParamsDeflate(), "lz4": SessionParamsLZ4(),
+             "lz4s": SessionParamsLZ4S(), "legacy": SessionParams()}
+
+
+def get_defaults(kind: str = "legacy"):
+    """qzGetDefaults: a copy of the current defaults of ``kind``
+    ("deflate", "lz4", "lz4s" or "legacy")."""
+    return copy.deepcopy(_defaults[kind])
+
+
+def set_defaults(params, kind: str = "legacy") -> int:
+    """qzSetDefaults: check ``params`` and install a copy as the defaults
+    of ``kind``. Returns QZ_OK or QZ_PARAMS."""
+    rc = params.check()
+    if rc != QZ_OK:
+        return rc
+    _defaults[kind] = copy.deepcopy(params)
+    return QZ_OK

@@ -11,11 +11,12 @@ versions of the kernels.
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Set
 
 import torch
 
-from .constants import QZ_NOSW_NO_HW, QZ_PARAMS, QzError
+from .constants import (QZ_DUPLICATE, QZ_NO_HW, QZ_NOSW_NO_HW, QZ_OK,
+                        QZ_PARAMS, QzError)
 from .utils.debug import qz_log
 
 
@@ -43,6 +44,27 @@ class Runtime:
     def __init__(self):
         self._lock = threading.Lock()
         self._engines: Dict[str, object] = {}
+        self._initialized: Set[str] = set()
+
+    def init(self, device="cuda", sw_backup: int = 1) -> int:
+        """qzInit for ``device``: QZ_OK when this call brings it up,
+        QZ_DUPLICATE when it is up already; for a CUDA device this machine
+        does not have, QZ_NO_HW (``sw_backup`` set: sessions may still run
+        on the CPU where the caller asks for it) or QZ_NOSW_NO_HW."""
+        try:
+            dev = resolve_device(device)
+        except QzError as e:
+            if e.rc != QZ_NOSW_NO_HW:
+                raise
+            return QZ_NO_HW if sw_backup else QZ_NOSW_NO_HW
+        with self._lock:
+            if str(dev) in self._initialized:
+                return QZ_DUPLICATE
+            self._initialized.add(str(dev))
+            return QZ_OK
+
+    def initialized(self, device) -> bool:
+        return str(resolve_device(device)) in self._initialized
 
     def get_engine(self, device):
         dev = resolve_device(device)

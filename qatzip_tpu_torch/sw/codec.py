@@ -1,26 +1,37 @@
-"""Software decompress of every framing, and the LZ4 frame codec.
+"""The software codec: compress and decompress of every framing.
 
 Counterpart of ``qatzip_tpu/sw/codec.py`` (reference ``src/qatzip_sw.c``:
-qzSWDecompressMulti :702-734, the LZ4 frame codec :430-628). Deflate
-members decode with zlib, LZ4 blocks with the native block codec. The
-codec takes these walks for the framings its batched native decode does
-not parse.
+qzSWCompress :632 with qzDeflateSWCompress :76-253, qzSWDecompressMulti
+:702-734, the LZ4 frame codec :430-628). Deflate goes through zlib, one
+member per ``hw_buff_sz`` chunk in the member framings; LZ4 blocks go
+through the native block codec. ``QZ_AUTO_SELECT_BEST`` sets
+``sw_compress`` beside the engine's output, and the codec takes the
+decode walks for the framings its batched native decode does not parse.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from .. import native
 from ..constants import (DataFormat, LZ4_BLOCK_UNCOMPRESSED_FLAG,
-                         LZ4_SKIPPABLE_MAGIC_MIN, QZ_DATA_ERROR, QzError)
+                         LZ4_SKIPPABLE_MAGIC_MIN, QZ_DATA_ERROR, QzError,
+                         effective_deflate_sw_level)
+from ..formats.gzip_format import output_footer_gen, output_header_gen
 from ..formats.lz4_format import (lz4_frame_footer, lz4_frame_header,
                                   lz4s_block_header, parse_lz4_frame_header,
                                   walk_lz4_blocks)
-from ..ops.checksum import crc32
+from ..ops.checksum import crc32, crc32_combine
 from ..ops.xxhash import xxh32
+
+
+def deflate_raw_compress(chunk, level: int = 1) -> bytes:
+    """One complete raw deflate stream (BFINAL set) of ``chunk``, zlib at
+    ``level``."""
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    return co.compress(chunk) + co.flush(zlib.Z_FINISH)
 
 
 def inflate_raw(payload) -> bytes:
@@ -40,11 +51,47 @@ def _chunks(data: bytes, sz: int):
         yield b""
 
 
-def sw_decompress_multi(data, data_fmt: DataFormat
+def sw_compress(data, data_fmt: DataFormat, level: int, hw_buff_sz: int,
+                mini_match: int = 3) -> Tuple[bytes, int]:
+    """``data`` compressed in software into ``data_fmt``. Returns (out,
+    crc32 of data). Deflate runs zlib at the QATzip level's zlib level,
+    one member per ``hw_buff_sz`` chunk in the gzip, gzip-ext and 4-byte
+    framings, one stream for raw and zlib; LZ4 and LZ4s take 64 KiB
+    blocks at most."""
+    zlevel = effective_deflate_sw_level(level)
+    if data_fmt in (DataFormat.DEFLATE_GZIP_EXT, DataFormat.DEFLATE_GZIP,
+                    DataFormat.DEFLATE_4B):
+        parts: List[bytes] = []
+        total_crc = 0
+        for chunk in _chunks(data, hw_buff_sz):
+            payload = deflate_raw_compress(chunk, zlevel)
+            ccrc = crc32(chunk)
+            total_crc = crc32_combine(total_crc, ccrc, len(chunk))
+            parts += [output_header_gen(data_fmt, len(chunk), len(payload)),
+                      payload, output_footer_gen(data_fmt, ccrc, len(chunk))]
+        return b"".join(parts), total_crc
+    if data_fmt == DataFormat.DEFLATE_RAW:
+        return deflate_raw_compress(data, zlevel), crc32(data)
+    if data_fmt == DataFormat.ZLIB:
+        co = zlib.compressobj(zlevel, zlib.DEFLATED, 15)
+        return co.compress(data) + co.flush(), crc32(data)
+    if data_fmt == DataFormat.LZ4:
+        return (lz4_frame_compress(data, min(hw_buff_sz, 64 * 1024)),
+                crc32(data))
+    if data_fmt == DataFormat.LZ4S:
+        return (lz4s_blocks_compress(data, min(hw_buff_sz, 64 * 1024),
+                                     mini_match), crc32(data))
+    raise QzError(QZ_DATA_ERROR, f"unsupported format {data_fmt}")
+
+
+def sw_decompress_multi(data, data_fmt: DataFormat,
+                        max_out: Optional[int] = None
                         ) -> Tuple[bytes, int, int]:
     """Decode concatenated members of ``data_fmt`` until the input ends
-    or a member is cut short. Returns (out, bytes consumed, crc32 of
-    out); raises QZ_DATA_ERROR when the first member is malformed."""
+    or a member is cut short, or, in the gzip framings, once ``max_out``
+    bytes or more are out (whole members only). Returns (out, bytes
+    consumed, crc32 of out); raises QZ_DATA_ERROR when the first member
+    is malformed."""
     data = bytes(data)
     n = len(data)
     if data_fmt in (DataFormat.DEFLATE_GZIP_EXT, DataFormat.DEFLATE_GZIP):
@@ -65,6 +112,8 @@ def sw_decompress_multi(data, data_fmt: DataFormat
             if consumed <= 0:
                 break
             pos += consumed
+            if max_out is not None and len(out) >= max_out:
+                break
         return bytes(out), pos, crc32(bytes(out))
 
     if data_fmt == DataFormat.DEFLATE_4B:

@@ -550,3 +550,151 @@ def test_lz4_and_level6_sessions_on_card_match_cpu(card, monkeypatch, kind):
         else:
             assert sess.decompress(outs[-1]) == data
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels (ops/devprims.py) and the row split
+# ---------------------------------------------------------------------------
+
+def _words(rng, shape):
+    return torch.from_numpy(rng.integers(0, 1 << 32, shape,
+                                         dtype=np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("shape,kind", [
+    ((512, 128), "random"), ((8192, 1024), "random"), ((1000, 128), "random"),
+    ((512, 128), "zero"), ((512, 128), "last"), ((300, 1024), "negative"),
+    ((64, 4), "random")])
+def test_lane_gather_kernel_matches_plain(card, shape, kind):
+    """Random indices, every index 0 or C - 1, negative ones (numpy's
+    wrap), and row counts that do not fill the last CTA."""
+    from qatzip_tpu_torch.ops import devprims as dv
+    rng = np.random.default_rng(21)
+    x = _words(rng, shape)
+    c = shape[1]
+    idx = {"random": lambda: rng.integers(0, c, shape),
+           "zero": lambda: np.zeros(shape, np.int64),
+           "last": lambda: np.full(shape, c - 1),
+           "negative": lambda: rng.integers(-c, c, shape)}[kind]()
+    idx = torch.from_numpy(idx.astype(np.int32))
+    before = cuda_pack.LAUNCHES["lane_gather"]
+    got = dv.lane_gather(x.to(card), idx.to(card))
+    assert torch.equal(got.cpu(), dv.lane_gather_ref(x, idx))
+    assert torch.equal(got, torch.gather(x.to(card), 1,
+                                         (idx & (c - 1)).to(card).long()))
+    assert cuda_pack.LAUNCHES["lane_gather"] == before + 1
+
+
+@pytest.mark.parametrize("shape", [(512, 128), (4096, 256), (2, 8)])
+def test_sublane_gather_kernel_matches_plain(card, shape):
+    from qatzip_tpu_torch.ops import devprims as dv
+    rng = np.random.default_rng(22)
+    x = _words(rng, shape)
+    idx = torch.from_numpy(rng.integers(-shape[0], shape[0], shape).astype(
+        np.int32))
+    idx[0] = 0
+    idx[1] = shape[0] - 1
+    got = dv.sublane_gather(x.to(card), idx.to(card))
+    assert torch.equal(got.cpu(), dv.sublane_gather_ref(x, idx))
+
+
+@pytest.mark.parametrize("shifts", [
+    None, (1, 3, 9, 27, 31, 77, 111), (0, 127), (-1, -33, 200, 128, 96),
+    tuple(range(0, 128, 4))],
+    ids=["static", "dynamic", "0-127", "negative-wrap", "32-shifts"])
+@pytest.mark.parametrize("rows", [4096, 1001])
+def test_roll_sum_kernel_matches_plain(card, shifts, rows):
+    from qatzip_tpu_torch.ops import devprims as dv
+    x = _words(np.random.default_rng(23), (rows, 128))
+    sh = None if shifts is None else torch.tensor(shifts, dtype=torch.int32)
+    got = dv.roll_sum(x.to(card), None if sh is None else sh.to(card))
+    want = dv.roll_sum_ref(x, sh)
+    assert torch.equal(got.cpu(), want)
+    ks = dv.STATIC_SHIFTS if shifts is None else shifts
+    xc = x.to(card)
+    lib = xc.clone()
+    for k in ks:
+        lib += torch.roll(xc, k, 1)
+    assert torch.equal(got, lib)
+
+
+def _bitonic_keys(kind, rng, rows):
+    if kind == "random":
+        return _words(rng, (rows, 128))
+    if kind == "ties-bit31":
+        vals = np.array([0, 7, 1 << 20, 0x7FFFFFFF, 1 << 31, (1 << 31) + 7,
+                         0xFFFFFFF0, 0xFFFFFFFF], np.uint32)
+        return torch.from_numpy(vals[rng.integers(0, 8, (rows, 128))].view(
+            np.int32))
+    if kind == "all-equal":
+        return _words(rng, (rows, 1)).expand(rows, 128).contiguous()
+    keys = np.sort(rng.integers(0, 1 << 32, (rows, 128), dtype=np.uint32), 1)
+    if kind == "reversed":
+        keys = keys[:, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(keys).view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties-bit31", "all-equal",
+                                  "sorted", "reversed"])
+@pytest.mark.parametrize("rows", [65536, 1003])
+def test_bitonic128_kernel_matches_plain(card, kind, rows):
+    """Keys and payloads bit-identical to the network's plain version;
+    keys also equal torch.sort's."""
+    from qatzip_tpu_torch.ops import devprims as dv
+    rng = np.random.default_rng(24)
+    keys = _bitonic_keys(kind, rng, rows)
+    vals = _words(rng, (rows, 128))
+    before = cuda_pack.LAUNCHES["bitonic128"]
+    gk, gv = dv.bitonic128(keys.to(card), vals.to(card))
+    assert cuda_pack.LAUNCHES["bitonic128"] == before + 1
+    wk, wv = dv.bitonic128_ref(keys.to(card), vals.to(card))
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    k64 = keys.to(card).to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(gk.to(torch.int64) & 0xFFFFFFFF,
+                       torch.sort(k64, dim=1).values)
+
+
+def test_devprims_tool_on_card(card):
+    """The probe tool end to end on the card at B = 2: every case, every
+    new kernel launched."""
+    from qatzip_tpu_torch.tools import devprims as tool
+    cuda_pack.reset_launch_counts()
+    lines = tool.main(["--device", "cuda", "--b", "2", "--iters", "1"])
+    assert len(lines) == 14 and lines[-1]["ok"] is True
+    for k in ("lane_gather", "sublane_gather", "roll_sum", "bitonic128"):
+        assert cuda_pack.LAUNCHES[k] > 0, k
+    cpu = tool.main(["--device", "cpu", "--b", "2", "--iters", "1"])
+    assert [ln.get("sum") for ln in lines] == [ln.get("sum") for ln in cpu]
+
+
+@pytest.mark.parametrize("static,sw_backup", [(False, 1), (True, 1),
+                                              (False, 2)],
+                         ids=["dynamic", "static", "auto-select-best"])
+def test_row_split_on_card_matches_cpu(card, static, sw_backup):
+    """256 KiB chunks: the card's device packs against the CPU engine
+    held on the same route; QZ_AUTO_SELECT_BEST picks the same way."""
+    import zlib as _zlib
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
+    from corpus import make_corpus
+    c = make_corpus()
+    data = c["text"][:400000] + c["binary"][:100000] + c["noise"][:30000]
+    own = CudaEngine.packs_on_device
+    outs = []
+    try:
+        CudaEngine.packs_on_device = (lambda self, s, algorithm="deflate":
+                                      algorithm != "lz4s")
+        for device in ("cpu", "cuda"):
+            sess = qz.QzSession(device=device)
+            p = qz.SessionParamsDeflate()
+            p.common.hw_buff_sz = 262144
+            p.common.sw_backup = sw_backup
+            if static:
+                p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
+            assert sess.setup_deflate(p) == qz.QZ_OK
+            outs.append(sess.compress(data))
+    finally:
+        CudaEngine.packs_on_device = own
+    assert outs[0] == outs[1]
+    d = _zlib.decompressobj(31)
+    assert d.decompress(outs[1]) == data[:262144]
