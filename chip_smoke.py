@@ -27,14 +27,18 @@ exits non-zero without the final line:
      planes, emission planes, cumsum and 256-position group pack), and on
      adversarial planes (b"A" * n: back-to-back 273-matches with their
      own tokens; literal runs of exactly 269, 270 and 271, a length that
-     is not a multiple of 4, an empty row); the four kernels of the probe
+     is not a multiple of 4, an empty row; the hand-made planes of
+     lz4_plane_rows, all 256 rows, B = 1 and 3, max_words 1000, and off
+     their alignment); the four kernels of the probe
      tool (lane and sublane gathers, the lane-roll sum, the 128-lane
      bitonic sort) on the tool's own inputs at its default shapes (B =
      128) and on adversarial ones (gather indices all 0 or all C - 1, roll
      shifts 0 and 127, sort keys from 8 values with bit 31 set, all-equal,
-     sorted and reverse-sorted rows), each also against one PyTorch call
-     (torch.gather, seven torch.roll summed, torch.sort with its payload
-     gathered);
+     sorted and reverse-sorted rows, 1, 3, 5 and 4097 rows of tied keys),
+     each also against one PyTorch call (torch.gather, seven torch.roll
+     summed, torch.sort with its payload gathered); the host cost of one
+     call of the sublane gather's and the roll sum's wrappers and of
+     torch.gather (a host clock over 1,000 calls);
   4. the device time of the tokenizer layer on the full tiles, then the
      paths, each a 64 MiB request through QzSession(device="cuda") with
      the launch counts set to 0 just before and read just after: the
@@ -299,6 +303,85 @@ def lz4_adversarial(n: int, kind: str, rows: int):
     return data, lengths
 
 
+LZ4_STEP = 2048       # positions the LZ4 byte packer walks a step
+LZ4_PLANE_KINDS = ("run 270 across a step", "run 271 across a step",
+                   "runs of 270", "long run at the end",
+                   "split emission at a step end", "all literals", "empty")
+
+
+def lz4_plane_rows(n: int, rows: int, seed: int = 7):
+    """(data, ml, dist, taken, lit) numpy planes (rows, n), LZ4 parse
+    planes made by hand so that each row puts one case where the LZ4 byte
+    packer's design is tight, row i of kind LZ4_PLANE_KINDS[i % 7]: a run
+    of 270 literals and one of 271 across a step boundary; runs of 270
+    literals between random matches all along the row (their tokens and
+    the matches that end them straddle steps and the staging ring); a
+    271-literal run that ends the row and is its only long run; a 4-byte
+    match emission at a step's last position, at byte offsets that move
+    with the row (every offset mod 4 over 49 rows); a row of literals
+    only; an empty row. Between the cases, back-to-back matches of 4-273
+    at distances 1-32768; ml and dist hold garbage where no match is
+    taken, which no packer may read."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (rows, n), dtype=np.uint8)
+    ml = rng.integers(-5, 1 << 20, (rows, n), dtype=np.int32)
+    dist = rng.integers(-5, 1 << 20, (rows, n), dtype=np.int32)
+    taken = np.zeros((rows, n), bool)
+    lit = np.zeros((rows, n), bool)
+
+    for i in range(rows):
+        kind = LZ4_PLANE_KINDS[i % len(LZ4_PLANE_KINDS)]
+        p = 0
+
+        def lits(count):
+            nonlocal p
+            lit[i, p:p + count] = True
+            p += count
+
+        def match(m):
+            nonlocal p
+            taken[i, p] = True
+            ml[i, p] = m
+            dist[i, p] = int(rng.integers(1, 32769))
+            p += m
+
+        def matches_to(end):
+            """Back-to-back matches from p to exactly ``end`` (end - p is
+            0 or at least 4)."""
+            while end - p >= 4:
+                r = end - p
+                match(r if r < 8 or (r <= 273 and rng.random() < 0.1)
+                      else int(rng.integers(4, min(273, r - 4) + 1)))
+
+        if kind == "empty":
+            continue
+        if kind == "all literals":
+            lits(n)
+            continue
+        if kind.startswith("run 27"):
+            run = int(kind[4:7])
+            step = LZ4_STEP * (1 + (i // 7) % max(n // LZ4_STEP - 1, 1))
+            matches_to(max(step - run // 2 - int(rng.integers(0, 9)), 0))
+            lits(run)
+        elif kind == "runs of 270":
+            while n - p > 560:
+                lits(270 if rng.random() < 0.8 else int(rng.integers(1, 271)))
+                match(int(rng.integers(4, 274)))
+        elif kind == "long run at the end":
+            matches_to(n - 271)
+            lits(271)
+            continue
+        else:                             # split emission
+            lits(3 + 4 * ((i // 7) % 8))  # 3, 7, ..., 31 literals, then
+            while p + 4 < LZ4_STEP:       # 4-byte matches (3 bytes each)
+                match(4)
+            match(20 + (i // 7) % 200)    # an own token and an ext byte
+        matches_to(n - 5)
+        lits(n - p)
+    return data, ml, dist, taken, lit
+
+
 def probe_kernels(dev, b: int, record, adversarial, res) -> None:
     """The probe kernels of the devprims tool at its shapes for batch
     ``b`` (its default is 128), on the tool's own inputs, then on
@@ -309,6 +392,7 @@ def probe_kernels(dev, b: int, record, adversarial, res) -> None:
     ties."""
     import numpy as np
     import torch
+    from qatzip_tpu_torch.ops import cuda_pack
     from qatzip_tpu_torch.ops import devprims as dv
     from qatzip_tpu_torch.tools import devprims as dvtool
     host = dvtool.inputs(b)
@@ -398,19 +482,27 @@ def probe_kernels(dev, b: int, record, adversarial, res) -> None:
     ties = np.array([0, 7, 1 << 20, 0x7FFFFFFF, 1 << 31, (1 << 31) + 7,
                      0xFFFFFFF0, 0xFFFFFFFF], np.uint32)
     rand = rng.integers(0, 1 << 32, (rows, 128), dtype=np.uint32)
-    for label, keys in ((None, k_main),
-                        ("keys from 8 values, bit 31 set in half",
-                         put(ties[rng.integers(0, 8, (rows, 128))])),
-                        ("all-equal rows", put(np.repeat(rand[:, :1], 128,
-                                                         axis=1))),
-                        ("sorted rows", put(np.sort(rand, axis=1))),
-                        ("reverse-sorted rows",
-                         put(np.sort(rand, axis=1)[:, ::-1]))):
+    cases = [(None, k_main, v_main),
+             ("keys from 8 values, bit 31 set in half",
+              put(ties[rng.integers(0, 8, (rows, 128))]), v_main),
+             ("all-equal rows", put(np.repeat(rand[:, :1], 128, axis=1)),
+              v_main),
+             ("sorted rows", put(np.sort(rand, axis=1)), v_main),
+             ("reverse-sorted rows", put(np.sort(rand, axis=1)[:, ::-1]),
+              v_main)]
+    # row counts that leave a CTA's last threads (32 rows a CTA) idle
+    for r in (1, 3, 5, 4097):
+        cases.append((f"{r} rows, keys from 8 values",
+                      put(ties[rng.integers(0, 8, (r, 128))]),
+                      put(rng.integers(0, 1 << 32, (r, 128),
+                                       dtype=np.uint32))))
+    for label, keys, vals in cases:
         k64 = keys.to(torch.int64) & 0xFFFFFFFF
+        r = keys.shape[0]
 
-        def sort_lib(k64=k64):
+        def sort_lib(k64=k64, vals=vals):
             ks, order = torch.sort(k64, dim=1)
-            return ks, torch.gather(v_main, 1, order)
+            return ks, torch.gather(vals, 1, order)
 
         def same_keys(got, lib):
             """Keys as torch.sort's; payloads on the rows without ties."""
@@ -419,12 +511,49 @@ def probe_kernels(dev, b: int, record, adversarial, res) -> None:
             return (torch.equal(got[0].to(torch.int64) & 0xFFFFFFFF, ks)
                     and torch.equal(got[1][free], vs[free]))
         probe("bitonic128", label,
-              lambda keys=keys: dv.bitonic128(keys, v_main),
-              lambda keys=keys: dv.bitonic128_ref(keys, v_main), sort_lib,
-              same_keys, rows * 128 * 16,
+              lambda keys=keys, vals=vals: dv.bitonic128(keys, vals),
+              lambda keys=keys, vals=vals: dv.bitonic128_ref(keys, vals),
+              sort_lib, same_keys, r * 128 * 16,
               # 28 stages of a compare and two selects a position
-              rows * 128 * 28 * 3, (rows, 128),
+              r * 128 * 28 * 3, (r, 128),
               None if label else "tools/devprims.py:222")
+
+    # the host cost of one call: a host clock over 1,000 calls with no
+    # synchronisation (the kernels, a few microseconds each, queue up)
+    xs = put(host["pl_gather_sublane_x"])
+    ixs = put(host["pl_gather_sublane_idx"])
+    ixs64 = ixs.to(torch.int64)
+    outs = torch.empty_like(xs)
+    sh = torch.tensor(dvtool.DYN_SHIFTS, dtype=torch.int32, device=dev)
+    log_r, log_c = xs.shape[0].bit_length() - 1, xs.shape[1].bit_length() - 1
+    raw = cuda_pack.kernels().qz_sublane_gather
+
+    def host_us(fn, calls=1000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+    costs = {
+        "sublane_gather": host_us(lambda: dv.sublane_gather(xs, ixs)),
+        "sublane_gather ctypes call alone": host_us(lambda: raw(
+            xs.data_ptr(), ixs.data_ptr(), outs.data_ptr(), log_r, log_c,
+            cuda_pack._stream())),
+        "roll_sum": host_us(lambda: dv.roll_sum(x512)),
+        "roll_sum dynamic shifts": host_us(lambda: dv.roll_sum(x512, sh)),
+        "torch.gather": host_us(lambda: torch.gather(xs, 0, ixs64))}
+    res["sublane_gather"]["host_us_per_call"] = {
+        k: costs[k] for k in ("sublane_gather",
+                              "sublane_gather ctypes call alone",
+                              "torch.gather")}
+    res["roll_sum"]["host_us_per_call"] = {
+        k: costs[k] for k in ("roll_sum", "roll_sum dynamic shifts")}
+    print("host cost of one call (host clock over 1000 calls, no sync), "
+          f"planes {tuple(xs.shape)} and {tuple(x512.shape)}: "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in costs.items()))
 
 
 def gunzip_members(blob: bytes):
@@ -771,26 +900,28 @@ def main() -> None:
           f"tile")
     mw_lz4 = lp.lz4_max_words(n)
 
-    def lz4_check(label, planes, adversarial_plane=None):
+    def lz4_check(label, planes, adversarial_plane=None, mw=mw_lz4):
         """The LZ4 byte packer on ``planes`` against its plain version and
         the torch route it stands for (nbytes and ok on every row, words
-        on ok rows); recorded, or kept as an adversarial plane."""
-        got = lp.lz4_pack_rows(*planes, max_words=mw_lz4)
-        err = max_err(got, lp.lz4_pack_rows_ref(*planes, max_words=mw_lz4))
-        old = lz4_route(*planes, mw_lz4)
+        on ok rows), ``mw`` words a row; recorded, or kept as an
+        adversarial plane."""
+        got = lp.lz4_pack_rows(*planes, max_words=mw)
+        err = max_err(got, lp.lz4_pack_rows_ref(*planes, max_words=mw))
+        old = lz4_route(*planes, mw)
         ok = got[2]
         check(torch.equal(got[1], old[1]) and torch.equal(ok, old[2])
               and torch.equal(got[0][ok], old[0][ok]),
               f"lz4_pack_rows ({label}) differs from the torch route")
-        ms = event_ms(lambda: lp.lz4_pack_rows(*planes, max_words=mw_lz4),
-                      20)
+        check(not got[0][~ok].any(), f"lz4_pack_rows ({label}): a row that "
+              "is not ok holds a word that is not zero")
+        ms = event_ms(lambda: lp.lz4_pack_rows(*planes, max_words=mw), 20)
         plain_ms = event_ms(lambda: lp.lz4_pack_rows_ref(
-            *planes, max_words=mw_lz4), 3)
-        route_ms = event_ms(lambda: lz4_route(*planes, mw_lz4), 3)
+            *planes, max_words=mw), 3)
+        route_ms = event_ms(lambda: lz4_route(*planes, mw), 3)
         b_ = planes[0].shape[0]
         if adversarial_plane is not None:
             adversarial("lz4_pack_rows", adversarial_plane,
-                        (b_, n), err, ms, plain_ms)
+                        (b_, n, mw), err, ms, plain_ms)
             res["lz4_pack_rows"]["adversarial"][-1].update(
                 torch_route_ms=route_ms, rows_not_ok=int((~ok).sum()))
         else:
@@ -806,16 +937,20 @@ def main() -> None:
                 lambda: lp.lz4_pack_rows(*planes, max_words=mw_lz4))
             old_ops, old_peak = device_cost(
                 lambda: lz4_route(*planes, mw_lz4))
+            dev_ms = device_ms(lambda: lp.lz4_pack_rows(*planes,
+                                                        max_words=mw), 20)
             res["lz4_pack_rows"].update(
                 torch_route_ms=route_ms, torch_route_device_ops=old_ops,
                 torch_route_peak_bytes=old_peak, device_ops=new_ops,
-                peak_bytes=new_peak, rows_not_ok=int((~ok).sum()))
+                peak_bytes=new_peak, rows_not_ok=int((~ok).sum()),
+                device_ms=dev_ms)
             print(f"kernel lz4_pack_rows: identical to the torch route (run "
                   f"planes, emissions, cumsum, group pack), which takes "
                   f"{route_ms:.4f} ms, {old_ops} device operations and "
                   f"{old_peak} bytes of device memory above the planes a "
-                  f"tile; lz4_pack_rows {new_ops} and {new_peak}; rows not "
-                  f"ok {int((~ok).sum())} of {b_}")
+                  f"tile; lz4_pack_rows {new_ops} and {new_peak}, device "
+                  f"time a launch (profiler) {dev_ms:.4f} ms; rows not ok "
+                  f"{int((~ok).sum())} of {b_}")
         return ok
 
     lz4_check("tile", (tile,) + tuple(lp.lz4_planes(tile, lengths, n=n)))
@@ -829,6 +964,33 @@ def main() -> None:
         check(ok.tolist() == want_ok, f"lz4_pack_rows ({plane}): ok flags "
               f"{ok.tolist()[:10]}... where {want_ok[:10]}... was due")
         del adv
+    # hand-made planes where the kernel's design is tight (runs of 270 and
+    # 271 across steps and the staging ring, a long run only at the row's
+    # end, a 4-byte emission at a step's end), all rows, then B = 1 and 3,
+    # a max_words under the block, and the planes off their alignment
+    hand = [torch.from_numpy(a).to(dev)
+            for a in lz4_plane_rows(n, TILE_B, seed=17)]
+    bad = ("run 271 across a step", "long run at the end", "all literals")
+    want_ok = [LZ4_PLANE_KINDS[i % len(LZ4_PLANE_KINDS)] not in bad
+               for i in range(TILE_B)]
+    moved = []
+    for a in hand:
+        flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=dev)
+        flat[1:] = a.reshape(-1)
+        moved.append(flat[1:].reshape(a.shape))
+    for plane, planes, mw, rows_ok in (
+            ("hand-made planes", hand, mw_lz4, want_ok),
+            ("hand-made planes, B = 1", [a[:1] for a in hand], mw_lz4,
+             want_ok[:1]),
+            ("hand-made planes, B = 3", [a[:3] for a in hand], mw_lz4,
+             want_ok[:3]),
+            ("hand-made planes, max_words 1000", hand, 1000, want_ok),
+            ("hand-made planes off their alignment (scalar loads)", moved,
+             mw_lz4, want_ok)):
+        ok = lz4_check(plane, planes, plane, mw)
+        check(ok.tolist() == rows_ok, f"lz4_pack_rows ({plane}): ok flags "
+              f"{ok.tolist()[:14]}... where {rows_ok[:14]}... was due")
+    del hand, moved, flat
     torch.cuda.empty_cache()
 
     probe_kernels(dev, 128, record, adversarial, res)

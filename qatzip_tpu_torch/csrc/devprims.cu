@@ -39,11 +39,28 @@
 //                  ..., 64) are compile-time constants; the dynamic one
 //                  reads its shifts from a device tensor into shared
 //                  memory first, so the compiler cannot see them;
-//   bitonic128     one warp per row, 4 (key, payload) pairs a thread in
-//                  registers; the partner of column c is c ^ j: for
-//                  j <= 16 the same slot of lane ^ j (__shfl_xor_sync), for
-//                  j = 32, 64 the same thread's slot s ^ (j >> 5). Equal
-//                  keys never swap, as in the TPU kernel.
+//   bitonic128     8 threads a row (4 rows a warp, 32 a CTA), 16
+//                  consecutive columns a thread (column 16 t + r in
+//                  register r of thread t), loaded and stored as 16-byte
+//                  vectors. The 22 stages with j <= 8 pair two registers of
+//                  one thread, and each pair is compared once, by its
+//                  owner; only the 6 stages with j = 16, 32, 64 pair a
+//                  register with the same register of thread t ^ (j / 16)
+//                  (__shfl_xor_sync inside the row's 8 lanes: 192 a thread,
+//                  1,536 a row). Keys are complemented in each stage size's
+//                  descending blocks, so every compare-exchange runs
+//                  ascending (a min, a max and the payload's select on
+//                  min != key) with no run-time direction; a strict compare
+//                  in the complemented domain is the strict compare of the
+//                  other direction, so equal keys never swap, as in the TPU
+//                  kernel. The first design (one warp a row, 4 columns a
+//                  thread, 25 of the 28 stages shuffled, both partners of a
+//                  pair comparing with a direction worked out from their
+//                  column) took 0.147 ms of device time at (65536, 128),
+//                  27 % of its 0.040 ms memory bound, bound by instruction
+//                  issue (~1,300 instructions and 200 shuffles a thread, by
+//                  a count of the source). This one issues about a quarter
+//                  of the instructions a row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,57 +148,121 @@ roll_sum_kernel(const uint32_t* __restrict__ x,
   for (int s = 0; s < 4; ++s) out[base + 32 * s + lane] = acc[s];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The bitonic network of bitonic128 on 8 threads a row, 16 consecutive
+// columns a thread: column c = 16 t + r lies in register r of the row's
+// thread t (lane & 7; a warp holds 4 rows).
+constexpr int kSortThreads = 256;
+constexpr int kRowThreads = 8;
+constexpr int kCols = kWidth / kRowThreads;            // 16
+constexpr int kSortRows = kSortThreads / kRowThreads;  // 32 rows a CTA
+
+// All ones where column c lies in a descending block of stage size s.
+__device__ __forceinline__ uint32_t desc(int c, int s) {
+  return (c & s) ? kFull : 0u;
+}
+
+// One compare-exchange in the ascending (flipped) domain: a, the lower
+// column, keeps the smaller key; equal keys never swap.
+__device__ __forceinline__ void exchange(uint32_t& ka, uint32_t& kb,
+                                         uint32_t& va, uint32_t& vb) {
+  const uint32_t lo = min(ka, kb);
+  const bool swap = lo != ka;  // kb < ka
+  kb = max(ka, kb);
+  ka = lo;
+  const uint32_t t = swap ? vb : va;
+  vb = swap ? va : vb;
+  va = t;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load16(const uint32_t* p,
+                                       uint32_t (&x)[kCols]) {
+  if (kVec) {
+#pragma unroll
+    for (int i = 0; i < kCols / 4; ++i) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[i];
+      x[4 * i] = q.x; x[4 * i + 1] = q.y; x[4 * i + 2] = q.z;
+      x[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) x[i] = p[i];
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store16(uint32_t* p,
+                                        const uint32_t (&x)[kCols]) {
+  if (kVec) {
+#pragma unroll
+    for (int i = 0; i < kCols / 4; ++i)
+      reinterpret_cast<uint4*>(p)[i] =
+          make_uint4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) p[i] = x[i];
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kSortThreads)
 bitonic128_kernel(const uint32_t* __restrict__ keys,
                   const uint32_t* __restrict__ vals,
                   uint32_t* __restrict__ kout, uint32_t* __restrict__ vout,
                   int rows) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // a whole warp: one row per warp
-  const size_t base = (size_t)row * kWidth;
-  uint32_t k[4], v[4];
+  const int t = threadIdx.x & (kRowThreads - 1);
+  const int row = blockIdx.x * kSortRows + threadIdx.x / kRowThreads;
+  const bool live = row < rows;  // past the end: zeros, still shuffled
+  const size_t base = (size_t)row * kWidth + t * kCols;
+  uint32_t k[kCols], v[kCols];
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    k[s] = keys[base + 32 * s + lane];
-    v[s] = vals[base + 32 * s + lane];
+  for (int r = 0; r < kCols; ++r) k[r] = v[r] = 0u;
+  if (live) {
+    load16<kVec>(keys + base, k);
+    load16<kVec>(vals + base, v);
   }
+  // keys in stage size s's domain: complemented in its descending blocks,
+  // where every compare-exchange then runs ascending
 #pragma unroll
-  for (int size = 2; size <= kWidth; size <<= 1) {
+  for (int r = 0; r < kCols; ++r) k[r] ^= desc(kCols * t + r, 2);
 #pragma unroll
-    for (int j = size >> 1; j >= 1; j >>= 1) {
-      uint32_t nk[4], nv[4];
+  for (int s = 2; s <= kWidth; s <<= 1) {
+    if (s > 2) {
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        uint32_t pk, pv;
-        if (j <= 16) {
-          pk = __shfl_xor_sync(kFull, k[s], j);
-          pv = __shfl_xor_sync(kFull, v[s], j);
-        } else {
-          pk = k[s ^ (j >> 5)];
-          pv = v[s ^ (j >> 5)];
+      for (int r = 0; r < kCols; ++r)
+        k[r] ^= desc(kCols * t + r, s >> 1) ^ desc(kCols * t + r, s);
+    }
+#pragma unroll
+    for (int j = s >> 1; j >= 1; j >>= 1) {
+      if (j >= kCols) {
+        // the partner column is the same register of thread t ^ (j / 16)
+        const int m = j / kCols;
+        const bool lower = (t & m) == 0;
+#pragma unroll
+        for (int r = 0; r < kCols; ++r) {
+          const uint32_t pk = __shfl_xor_sync(kFull, k[r], m);
+          const uint32_t pv = __shfl_xor_sync(kFull, v[r], m);
+          const uint32_t nk = lower ? min(k[r], pk) : max(k[r], pk);
+          if (nk != k[r]) v[r] = pv;  // a strict compare took the partner
+          k[r] = nk;
         }
-        const int c = 32 * s + lane;
-        const bool take_min = ((c & j) == 0) == ((c & size) == 0);
-        const bool swap = take_min ? pk < k[s] : pk > k[s];
-        nk[s] = swap ? pk : k[s];
-        nv[s] = swap ? pv : v[s];
-      }
+      } else {
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        k[s] = nk[s];
-        v[s] = nv[s];
+        for (int r = 0; r < kCols; ++r)
+          if ((r & j) == 0) exchange(k[r], k[r | j], v[r], v[r | j]);
       }
     }
   }
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    kout[base + 32 * s + lane] = k[s];
-    vout[base + 32 * s + lane] = v[s];
+  // stage size 128 has no descending block: the keys are plain again
+  if (live) {
+    store16<kVec>(kout + base, k);
+    store16<kVec>(vout + base, v);
   }
 }
 
 int warp_row_blocks(int rows) { return (rows + kWarps - 1) / kWarps; }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
@@ -224,9 +305,18 @@ extern "C" int qz_roll_sum(const void* x, const void* shifts, int nshift,
 
 extern "C" int qz_bitonic128(const void* keys, const void* vals, void* kout,
                              void* vout, int rows, void* stream) {
-  bitonic128_kernel<<<warp_row_blocks(rows), kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (const uint32_t*)keys, (const uint32_t*)vals, (uint32_t*)kout,
-      (uint32_t*)vout, rows);
+  const int blocks = (rows + kSortRows - 1) / kSortRows;
+  const bool vec = aligned16(keys) && aligned16(vals) && aligned16(kout) &&
+                   aligned16(vout);
+  if (vec)
+    bitonic128_kernel<true><<<blocks, kSortThreads, 0,
+                              (cudaStream_t)stream>>>(
+        (const uint32_t*)keys, (const uint32_t*)vals, (uint32_t*)kout,
+        (uint32_t*)vout, rows);
+  else
+    bitonic128_kernel<false><<<blocks, kSortThreads, 0,
+                               (cudaStream_t)stream>>>(
+        (const uint32_t*)keys, (const uint32_t*)vals, (uint32_t*)kout,
+        (uint32_t*)vout, rows);
   return (int)cudaGetLastError();
 }

@@ -35,13 +35,15 @@ from typing import Tuple
 import torch
 
 from .cuda_pack import LAUNCHES, _as_i32, _check, _require, _stream, kernels
-from .deflate_pack import MAX_SMEM
 from .lz77 import _analyze
 
 LZ4_MAX_MATCH = 273     # stored length overflow <= 254: one byte
 LZ4_MAX_RUN = 270       # token + <= 2 length bytes + the first literal
 LZ4_GROUP_W = 112       # the JAX route's words for 256 positions
 NM_ROUNDS = 10          # the JAX route's next-match doubling: 1024 >= 543
+LZ4_RING_WORDS = 8192   # the kernel's staged output words (32 KB)
+LZ4_SMEM_EXTRA = 3200   # the kernel's static shared memory (totals, nibbles)
+LZ4_SMEM_LIMIT = 49152  # a CTA's shared memory without opting in
 
 
 def lz4_max_words(n: int) -> int:
@@ -160,9 +162,10 @@ def lz4_pack_rows(data, ml, dist, taken, lit, *, max_words: int
     byte after a run, so 256 positions emit at most ~285 bytes, 72 words
     with the offset. So the result equals that route's.
 
-    On the card the kernel holds a row's words and its literal bitmap in
-    shared memory, so ``4 * max_words + n / 8`` is at most about
-    ``MAX_SMEM``.
+    On the card a CTA holds the row's literal bitmap and a ring of
+    ``LZ4_RING_WORDS`` output words in the shared memory a CTA gets
+    without opting in (``LZ4_SMEM_LIMIT``), so ``n`` is at most 105,472;
+    ``max_words`` is free.
     """
     b, n = ml.shape
     for t, what, dtype in ((data, "data", torch.uint8),
@@ -180,11 +183,11 @@ def lz4_pack_rows(data, ml, dist, taken, lit, *, max_words: int
                                  max_words=max_words)
     if ml.device.type != "cuda":
         raise ValueError(f"unsupported device {ml.device}")
-    smem = (max_words + 6) // 4 * 16 + (n + 31) // 32 * 4 + 33 * 4
-    if smem > MAX_SMEM:
-        raise ValueError(f"a row of {max_words} words and {n} positions "
-                         f"does not fit the {MAX_SMEM} bytes of shared "
-                         "memory of one CTA")
+    smem = 4 * LZ4_RING_WORDS + (n + 31) // 32 * 4 + LZ4_SMEM_EXTRA
+    if smem > LZ4_SMEM_LIMIT:
+        raise ValueError(f"the literal bitmap of a row of {n} positions "
+                         f"does not fit the {LZ4_SMEM_LIMIT} bytes of "
+                         "shared memory of one CTA")
     words = torch.empty((b, max_words), dtype=torch.int32, device=ml.device)
     nbytes = torch.empty((b,), dtype=torch.int32, device=ml.device)
     ok = torch.empty((b,), dtype=torch.bool, device=ml.device)

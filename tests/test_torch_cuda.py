@@ -510,11 +510,70 @@ def test_lz4_pack_rows_kernel_scalar_path_and_short_rows(card):
 
 
 def test_lz4_pack_rows_refuses_what_the_kernel_does_not_take(card):
+    """A plane left on the host and a row whose literal bitmap passes
+    shared memory are refused; a row of MAX_SMEM / 4 words, which the
+    first design (the row's words in shared memory) refused, packs."""
     on_card, host = _lz4_planes_on(card, 1024)
     with pytest.raises(ValueError):          # one plane left on the host
         lp.lz4_pack_rows(*on_card[:4], host[4], max_words=600)
-    with pytest.raises(ValueError):          # a row past shared memory
-        lp.lz4_pack_rows(*on_card, max_words=lp.MAX_SMEM // 4)
+    wide = dp.MAX_SMEM // 4
+    assert _lz4_same(lp.lz4_pack_rows(*on_card, max_words=wide),
+                     lp.lz4_pack_rows_ref(*host, max_words=wide))
+    n = 8 * lp.LZ4_SMEM_LIMIT
+    z8 = torch.zeros((1, n), dtype=torch.uint8, device=card)
+    z32 = torch.zeros((1, n), dtype=torch.int32, device=card)
+    zb = torch.zeros((1, n), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError):          # a bitmap past shared memory
+        lp.lz4_pack_rows(z8, z32, z32, zb, zb, max_words=16)
+
+
+def _hand_made_planes(n, rows, seed):
+    """chip_smoke.lz4_plane_rows (loaded by path) as CPU tensors, and the
+    kinds of its rows."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("qz_chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    kinds = [cs.LZ4_PLANE_KINDS[i % len(cs.LZ4_PLANE_KINDS)]
+             for i in range(rows)]
+    planes = [torch.from_numpy(a) for a in cs.lz4_plane_rows(n, rows, seed)]
+    return planes, kinds
+
+
+@pytest.mark.parametrize("n,rows", [(65536, 56), (65536, 1), (65536, 3),
+                                    (8192, 21), (8197, 14)])
+def test_lz4_pack_rows_kernel_hand_made_planes(card, n, rows):
+    """Runs of 270 and 271 literals across a step boundary, runs of 270
+    all along a row (tokens and their matches across steps and the
+    staging ring), a long run only at the row's end, a 4-byte emission at
+    a step's last position at every byte offset mod 4, literal-only and
+    empty rows; B = 1 and 3; max_words smaller than the block; n = 8197
+    takes the scalar loads."""
+    host, kinds = _hand_made_planes(n, rows, seed=n + rows)
+    on_card = [p.to(card) for p in host]
+    for mw in (lp.lz4_max_words(n), 1000, 37):
+        want = lp.lz4_pack_rows_ref(*host, max_words=mw)
+        assert _lz4_same(lp.lz4_pack_rows(*on_card, max_words=mw), want)
+    bad = ("run 271 across a step", "long run at the end", "all literals")
+    assert want[2].tolist() == [k not in bad for k in kinds]
+
+
+def test_lz4_pack_rows_kernel_hand_made_planes_unaligned(card):
+    """The hand-made planes one element off their alignment: the scalar
+    loads at the main path's width."""
+    n = 65536
+    host, _kinds = _hand_made_planes(n, 14, seed=11)
+    moved = []
+    for a in host:
+        flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=card)
+        flat[1:] = a.reshape(-1).to(card)
+        moved.append(flat[1:].reshape(a.shape))
+    mw = lp.lz4_max_words(n)
+    assert _lz4_same(lp.lz4_pack_rows(*moved, max_words=mw),
+                     lp.lz4_pack_rows_ref(*host, max_words=mw))
 
 
 @pytest.mark.parametrize("kind", ["lz4-token", "lz4-device-pack", "lz4s",
@@ -636,10 +695,11 @@ def _bitonic_keys(kind, rng, rows):
 
 @pytest.mark.parametrize("kind", ["random", "ties-bit31", "all-equal",
                                   "sorted", "reversed"])
-@pytest.mark.parametrize("rows", [65536, 1003])
+@pytest.mark.parametrize("rows", [65536, 1003, 1, 3, 5, 4097])
 def test_bitonic128_kernel_matches_plain(card, kind, rows):
     """Keys and payloads bit-identical to the network's plain version;
-    keys also equal torch.sort's."""
+    keys also equal torch.sort's. Row counts that do not fill a CTA's 32
+    rows leave its last threads without a row."""
     from qatzip_tpu_torch.ops import devprims as dv
     rng = np.random.default_rng(24)
     keys = _bitonic_keys(kind, rng, rows)
@@ -652,6 +712,23 @@ def test_bitonic128_kernel_matches_plain(card, kind, rows):
     k64 = keys.to(card).to(torch.int64) & 0xFFFFFFFF
     assert torch.equal(gk.to(torch.int64) & 0xFFFFFFFF,
                        torch.sort(k64, dim=1).values)
+
+
+def test_bitonic128_kernel_unaligned_rows(card):
+    """Planes off their 16-byte alignment take the scalar loads."""
+    from qatzip_tpu_torch.ops import devprims as dv
+    rng = np.random.default_rng(25)
+    rows = 37
+    keys = _bitonic_keys("ties-bit31", rng, rows)
+    vals = _words(rng, (rows, 128))
+    moved = []
+    for a in (keys, vals):
+        flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=card)
+        flat[1:] = a.reshape(-1).to(card)
+        moved.append(flat[1:].reshape(a.shape))
+    gk, gv = dv.bitonic128(*moved)
+    wk, wv = dv.bitonic128_ref(keys, vals)
+    assert torch.equal(gk.cpu(), wk) and torch.equal(gv.cpu(), wv)
 
 
 def test_devprims_tool_on_card(card):

@@ -268,6 +268,23 @@ def test_lz4_pack_rows_ref_matches_jax_on_the_same_planes(pack_case):
     assert torch.equal(nb2, nbytes) and torch.equal(ok2, ok)
 
 
+def test_ok_is_no_run_over_270_literals(pack_case):
+    """What the card's byte packer decides ok by, before it writes a
+    word: a row is ok exactly when no run of consecutive literals in its
+    lit plane is longer than LZ4_MAX_RUN (the JAX route's flags)."""
+    c = pack_case
+    lit = lp.lz4_planes(torch.from_numpy(c["data"]),
+                        torch.from_numpy(c["lengths"]), n=N)[3].numpy()
+    longest = []
+    for row in lit:
+        edges = np.flatnonzero(np.diff(np.concatenate(
+            [[0], row.astype(np.int8), [0]])))
+        longest.append(int((edges[1::2] - edges[::2]).max(initial=0)))
+    assert [r <= lp.LZ4_MAX_RUN for r in longest] == c["ok"].tolist()
+    # the fixture holds rows on both sides of the limit
+    assert 270 in longest and 271 in longest
+
+
 def test_lz4_group_cap_never_binds_on_ok_rows(pack_case):
     """The JAX route dropped what lay past LZ4_GROUP_W words of a
     256-position group: on ok rows no group comes near it."""
