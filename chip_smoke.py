@@ -1,14 +1,21 @@
 """End-to-end check of qatzip_tpu_torch on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(``python3 chip_smoke.py --host-cost`` runs only the host cost of one call
+of every kernel wrapper, ``host_cost_table``.)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the final line:
 
   1. environment: torch / CUDA versions, the card, its power limit;
-  2. build: the CUDA kernels (one nvcc per source, all at once, sm_90a)
-     and the host C++ library; beside it, the time of one nvcc command
-     over all the kernel sources, which the build does not use;
+  2. build: the CUDA kernels and their Python binding (one nvcc per
+     kernel source and one cc over csrc/binding.c, all at once, sm_90a,
+     then a link into the extension module) and the host C++ library;
+     beside it, the time of one nvcc command over all the kernel sources,
+     which the build does not use; and the script's own measurement
+     extension (MEASURE_SRC: the binding's argument path with no launch,
+     and a C loop of launches) and a copy of the probe kernels linked
+     with the shared CUDA runtime (LOOP_CU), neither part of the library;
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and on their own inputs (the first 16 MB tile of
      the corpus): bit-identical, with CUDA-event times beside the plain
@@ -36,9 +43,12 @@ exits non-zero without the final line:
      shifts 0 and 127, sort keys from 8 values with bit 31 set, all-equal,
      sorted and reverse-sorted rows, 1, 3, 5 and 4097 rows of tied keys),
      each also against one PyTorch call (torch.gather, seven torch.roll
-     summed, torch.sort with its payload gathered); the host cost of one
-     call of the sublane gather's and the roll sum's wrappers and of
-     torch.gather (a host clock over 1,000 calls);
+     summed, torch.sort with its payload gathered); then the host cost of
+     one call of every wrapper at its path's shape beside its library
+     call (``host_cost_table``: a host clock over 1,000 calls, no sync
+     within a batch of 100), and one sublane gather call at (512, 128)
+     part by part beside the ctypes route the kernels took before,
+     torch.gather and torch.cuda._sleep(0) (``sublane_breakdown``);
   4. the device time of the tokenizer layer on the full tiles, then the
      paths, each a 64 MiB request through QzSession(device="cuda") with
      the launch counts set to 0 just before and read just after: the
@@ -392,7 +402,6 @@ def probe_kernels(dev, b: int, record, adversarial, res) -> None:
     ties."""
     import numpy as np
     import torch
-    from qatzip_tpu_torch.ops import cuda_pack
     from qatzip_tpu_torch.ops import devprims as dv
     from qatzip_tpu_torch.tools import devprims as dvtool
     host = dvtool.inputs(b)
@@ -518,42 +527,347 @@ def probe_kernels(dev, b: int, record, adversarial, res) -> None:
               r * 128 * 28 * 3, (r, 128),
               None if label else "tools/devprims.py:222")
 
-    # the host cost of one call: a host clock over 1,000 calls with no
-    # synchronisation (the kernels, a few microseconds each, queue up)
-    xs = put(host["pl_gather_sublane_x"])
-    ixs = put(host["pl_gather_sublane_idx"])
-    ixs64 = ixs.to(torch.int64)
-    outs = torch.empty_like(xs)
-    sh = torch.tensor(dvtool.DYN_SHIFTS, dtype=torch.int32, device=dev)
-    log_r, log_c = xs.shape[0].bit_length() - 1, xs.shape[1].bit_length() - 1
-    raw = cuda_pack.kernels().qz_sublane_gather
 
-    def host_us(fn, calls=1000):
+# chip_smoke's own measurement extension, never part of the library: the
+# binding's argument path (binding.c, included) with no launch behind it,
+# the same as a bare C function for ctypes, and N sublane-gather launches
+# (each with its cudaGetLastError) in one call. Linked against the kernel
+# library, so the launches are the library's own.
+MEASURE_SRC = r"""
+#include "binding.c"
+
+int qz_noop(const void* x, const void* idx, void* out, int log_r, int log_c,
+            void* stream) {
+  (void)x; (void)idx; (void)out; (void)log_r; (void)log_c; (void)stream;
+  return 0;
+}
+
+static PyObject* py_noop(PyObject* self, PyObject* const* args,
+                         Py_ssize_t nargs) {
+  Py_ssize_t v[6];
+  (void)self;
+  if (!take("noop", "pppiip", 6, args, nargs, v)) return NULL;
+  return done("noop", qz_noop(P(0), P(1), P(2), I(3), I(4), P(5)));
+}
+
+static PyObject* py_launch_loop(PyObject* self, PyObject* const* args,
+                                Py_ssize_t nargs) {
+  Py_ssize_t v[7];
+  int rc = 0;
+  (void)self;
+  if (!take("launch_loop", "pppiipi", 7, args, nargs, v)) return NULL;
+  for (int i = 0; i < I(6) && rc == 0; ++i)
+    rc = qz_sublane_gather(P(0), P(1), P(2), I(3), I(4), P(5));
+  return done("launch_loop", rc);
+}
+
+static PyMethodDef measure_methods[] = {
+    {"noop", (PyCFunction)(void (*)(void))py_noop, METH_FASTCALL, NULL},
+    {"launch_loop", (PyCFunction)(void (*)(void))py_launch_loop,
+     METH_FASTCALL, NULL},
+    {NULL, NULL, 0, NULL}};
+
+static struct PyModuleDef measure_module = {
+    PyModuleDef_HEAD_INIT, "_qz_measure", NULL, -1, measure_methods, NULL,
+    NULL, NULL, NULL};
+
+PyMODINIT_FUNC PyInit__qz_measure(void) {
+  return PyModule_Create(&measure_module);
+}
+"""
+# the probe kernels again, built by nvcc with the CUDA runtime linked as a
+# shared library (at run time the libcudart.so.12 PyTorch loaded), where
+# the kernel library links it statically, with two loops of sublane-gather
+# launches: through the library's entry (qz::launch, one cudaLaunchKernel)
+# and as kernel<<<>>> followed by cudaGetLastError
+LOOP_CU = r"""
+#include "devprims.cu"
+
+extern "C" int qz_launch_loop(const void* x, const void* idx, void* out,
+                              int log_r, int log_c, void* stream, int n) {
+  int rc = 0;
+  for (int i = 0; i < n && rc == 0; ++i)
+    rc = qz_sublane_gather(x, idx, out, log_r, log_c, stream);
+  return rc;
+}
+
+extern "C" int qz_chevron_loop(const void* x, const void* idx, void* out,
+                               int log_r, int log_c, void* stream, int n) {
+  const size_t want = (((size_t)1 << (log_r + log_c)) + kThreads - 1) /
+                      kThreads;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  int rc = 0;
+  for (int i = 0; i < n && rc == 0; ++i) {
+    sublane_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out, log_r,
+        log_c);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
+}
+"""
+
+
+def build_measure(kernels_so: str):
+    """(the measurement extension, LOOP_CU's two launch loops, seconds the
+    extension's compile took): MEASURE_SRC compiled by the binding's own
+    host compiler command and linked against ``kernels_so``; LOOP_CU
+    built by nvcc with ``-cudart shared`` beside the link."""
+    import ctypes
+    import importlib.machinery
+    from qatzip_tpu_torch.ops import _build
+    src = os.path.join(_build.BUILD_DIR, "qz_measure.c")
+    cu = os.path.join(_build.BUILD_DIR, "qz_loop_shared.cu")
+    for path, text in ((src, MEASURE_SRC), (cu, LOOP_CU)):
+        with open(path, "w") as f:
+            f.write(text)
+    obj, so, loop_so = src[:-2] + ".o", src[:-2] + ".so", cu[:-3] + ".so"
+    t0 = time.perf_counter()
+    _build._run_all([_build.binding_command(src, obj)])
+    secs = time.perf_counter() - t0
+    _build._run_all([
+        ["cc", "-shared", "-o", so, obj, kernels_so],
+        [_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart",
+         "shared", "-I", _build.CSRC_DIR, "-o", loop_so, cu]])
+    loader = importlib.machinery.ExtensionFileLoader("_qz_measure", so)
+    spec = importlib.util.spec_from_file_location("_qz_measure", so,
+                                                  loader=loader)
+    mod = importlib.util.module_from_spec(spec)
+    loader.exec_module(mod)
+    lib = ctypes.CDLL(loop_so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    loops = (lib.qz_launch_loop, lib.qz_chevron_loop)
+    for loop in loops:
+        loop.restype, loop.argtypes = ci, [vp, vp, vp, ci, ci, vp, ci]
+    return mod, loops, secs
+
+
+def host_us(fns: dict, calls: int = 1000, batch: int = 100) -> dict:
+    """Host microseconds a call of each function in ``fns``: a host clock
+    over ``batch`` calls with no synchronisation, the card drained
+    (untimed) between batches, ``calls`` calls in all. The functions take
+    turns batch by batch, so each sees the same host."""
+    import torch
+    for fn in fns.values():
         fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        us = (time.perf_counter() - t0) / calls * 1e6
-        torch.cuda.synchronize()
-        return us
-    costs = {
-        "sublane_gather": host_us(lambda: dv.sublane_gather(xs, ixs)),
-        "sublane_gather ctypes call alone": host_us(lambda: raw(
-            xs.data_ptr(), ixs.data_ptr(), outs.data_ptr(), log_r, log_c,
-            cuda_pack._stream())),
-        "roll_sum": host_us(lambda: dv.roll_sum(x512)),
-        "roll_sum dynamic shifts": host_us(lambda: dv.roll_sum(x512, sh)),
-        "torch.gather": host_us(lambda: torch.gather(xs, 0, ixs64))}
-    res["sublane_gather"]["host_us_per_call"] = {
-        k: costs[k] for k in ("sublane_gather",
-                              "sublane_gather ctypes call alone",
-                              "torch.gather")}
-    res["roll_sum"]["host_us_per_call"] = {
-        k: costs[k] for k in ("roll_sum", "roll_sum dynamic shifts")}
-    print("host cost of one call (host clock over 1000 calls, no sync), "
-          f"planes {tuple(xs.shape)} and {tuple(x512.shape)}: "
-          + ", ".join(f"{k} {v:.2f} us" for k, v in costs.items()))
+    total = dict.fromkeys(fns, 0.0)
+    rounds = max(calls // batch, 1)
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(batch):
+                fn()
+            total[k] += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {k: v / (rounds * batch) * 1e6 for k, v in total.items()}
+
+
+def host_cost_table(dev) -> dict:
+    """{kernel: {"wrapper": us, "library": us or None, "shape": ...}}: the
+    host cost of one call of every kernel wrapper (``host_us``) at its
+    main path's shape (the probe kernels: the probe tool's), beside the
+    one PyTorch call that computes the same function where there is one.
+    The inputs are zeros or a fixed pattern that the kernels take: a
+    call's host cost follows the shapes, not the words. Uses only the
+    wrappers' public signatures, so it also times an older tree's."""
+    import torch
+    from qatzip_tpu_torch.ops import cuda_pack as cp
+    from qatzip_tpu_torch.ops import deflate_pack as dp
+    from qatzip_tpu_torch.ops import devprims as dv
+    from qatzip_tpu_torch.ops import lz4_pack as lp
+    from qatzip_tpu_torch.parallel.dispatch import TILE_B, _tok_knobs
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    n, w, b = 65536, 8192, TILE_B
+    probes = _tok_knobs(1, n)[4]
+    key = (torch.arange(w, dtype=torch.int32, device=dev) | (5 << 13))
+    key = key.expand(b * n // w * 9 // 8, w).contiguous()   # (2304, 8192)
+    ctx = z(3, *key.shape)
+    im, ml, base = z(b, n, dtype=torch.bool), z(b, n), z(b)
+    tables = (z(b, 286), z(b, 30))
+    sym = z(b, n)
+    table = z(b, 318)
+    tidx = z(b, 2 * n, dtype=torch.int64)
+    flat = z(b * 2 * n, dtype=torch.int64)
+    mw_dyn = (n * dp.DYN_LIMIT + 4096 + 31) // 32 + 2
+    u8 = z(b, n, dtype=torch.uint8)
+    x65, x512, x4096 = z(65536, 128), z(512, 128), z(4096, 128)
+    i65, i512 = x65.to(torch.int64), x512.to(torch.int64)
+    sh = torch.tensor((1, 3, 9, 27, 31, 77, 111), dtype=torch.int32,
+                      device=dev)
+
+    def rolls(ks):
+        def run():
+            acc = x4096.clone()
+            for k in ks:
+                acc += torch.roll(x4096, k, 1)
+            return acc
+        return run
+
+    def sort_gather():
+        ks, order = torch.sort(i65, dim=1)
+        return ks, torch.gather(x65, 1, order)
+    cases = {
+        "candidate_search": (
+            lambda: cp.candidate_search(key, ctx, probes=probes, min_match=4,
+                                        pbits=13), None, tuple(key.shape)),
+        "parse_scan": (lambda: cp.parse_scan(im, ml, 8192), None, (b, n)),
+        "pack_rows": (
+            lambda: dp.pack_rows(ml, ml, im, im, base, max_words=mw_dyn,
+                                 lpack=sym, dpack=sym), None,
+            f"dynamic ({b}, {n}) -> ({b}, {mw_dyn})"),
+        "huffman_lookup": (lambda: cp.huffman_lookup(*tables, sym, sym),
+                           lambda: torch.gather(table, 1, tidx), (b, n)),
+        "symbol_histogram": (
+            lambda: cp.symbol_histogram(sym, sym),
+            lambda: torch.bincount(flat, minlength=b * (cp.NBINS + 1)),
+            (b, n)),
+        "lz4_pack_rows": (
+            lambda: lp.lz4_pack_rows(u8, ml, ml, im, im,
+                                     max_words=lp.lz4_max_words(n)),
+            None, (b, n)),
+        "lane_gather": (lambda: dv.lane_gather(x65, x65),
+                        lambda: torch.gather(x65, 1, i65), (65536, 128)),
+        "sublane_gather": (lambda: dv.sublane_gather(x512, x512),
+                           lambda: torch.gather(x512, 0, i512), (512, 128)),
+        "roll_sum": (lambda: dv.roll_sum(x4096), rolls(dv.STATIC_SHIFTS),
+                     (4096, 128)),
+        "roll_sum dynamic shifts": (lambda: dv.roll_sum(x4096, sh),
+                                    rolls(sh.tolist()), (4096, 128)),
+        "bitonic128": (lambda: dv.bitonic128(x65, x65), sort_gather,
+                       (65536, 128)),
+    }
+    out = {}
+    for name, (kern, lib, shape) in cases.items():
+        if name == "symbol_histogram":
+            # bincount reads its largest value back to the host: a few
+            # calls, each its whole device time
+            got = host_us({"wrapper": kern})
+            got.update(host_us({"library": lib}, calls=20, batch=10))
+        else:
+            got = host_us({"wrapper": kern, **({"library": lib} if lib
+                                               else {})})
+        out[name] = {"wrapper": got["wrapper"], "library": got.get("library"),
+                     "shape": shape}
+    return out
+
+
+def sublane_breakdown(dev, measure, shared_loops, kernels_so: str) -> dict:
+    """The host cost of one ``sublane_gather`` call at (512, 128), part by
+    part (``host_us``, microseconds), beside the same parts of the ctypes
+    route the kernels took before (replayed here as a yardstick: the
+    checks with ``torch.device`` objects, a locked library lookup, a
+    ``torch.cuda.Stream`` object, ctypes with its argtypes), torch.gather
+    on the same plane and ``torch.cuda._sleep(0)``, the card's floor for
+    one launch from PyTorch (its host cost, and its device time from the
+    profiler). A launch is timed in C, 100 launches a call: the kernel
+    library's entry, and ``shared_loops`` (LOOP_CU, the CUDA runtime
+    linked as a shared library): the same entry, and kernel<<<>>> with
+    cudaGetLastError."""
+    import ctypes
+    import threading
+    import numpy as np
+    import torch
+    from qatzip_tpu_torch.ops import cuda_pack as cp
+    from qatzip_tpu_torch.ops import devprims as dv
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(rng.integers(0, 1 << 31, (512, 128), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 512, (512, 128)).astype(
+        np.int32)).to(dev)
+    idx64 = idx.to(torch.int64)
+    out = torch.empty_like(x)
+    ptrs = (x.data_ptr(), idx.data_ptr(), out.data_ptr())
+    k = cp.kernels()
+    stream = k.stream(dev.index or 0)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    cdll = ctypes.CDLL(kernels_so)
+    cnoop = ctypes.CDLL(measure.__file__).qz_noop
+    for fn in (cdll.qz_sublane_gather, cnoop):
+        fn.restype, fn.argtypes = ci, [vp, vp, vp, ci, ci, vp]
+    lock = threading.Lock()
+
+    def locked():
+        with lock:
+            return cdll
+
+    def old_require(t, what, dtype, device):
+        if t.dtype != dtype:
+            raise TypeError(f"{what} must be {dtype}")
+        if t.device != device:
+            raise ValueError(f"{what} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+    def old_checks():
+        rows, c = x.shape
+        log_r = dv._log2(rows, "row count", 1, 1 << 30)
+        log_c = dv._log2(c, "row width", 1, 1 << 30)
+        if log_r + log_c > 30 or tuple(idx.shape) != (rows, c):
+            raise ValueError("plane")
+        old_require(x, "x", torch.int32, x.device)
+        old_require(idx, "idx", torch.int32, x.device)
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError("device")
+        return log_r, log_c
+
+    def new_checks():                    # as the wrapper makes them
+        shape = x.shape
+        rows, c = shape
+        if rows & (rows - 1) or c & (c - 1) or not 0 < rows * c <= 1 << 30:
+            raise ValueError("plane")
+        if idx.shape != shape:
+            raise ValueError("idx")
+        return dv._pair(x, idx, "x", "idx")
+
+    def ctypes_route():
+        log_r, log_c = old_checks()
+        o = torch.empty_like(x)
+        rc = locked().qz_sublane_gather(
+            x.data_ptr(), idx.data_ptr(), o.data_ptr(), log_r, log_c,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"sublane_gather launch failed: {rc}")
+        return o
+
+    check(torch.equal(ctypes_route(), dv.sublane_gather(x, idx)),
+          "the ctypes route and the wrapper disagree")
+    got = host_us({
+        "wrapper": lambda: dv.sublane_gather(x, idx),
+        "ctypes route": ctypes_route,
+        "torch.gather": lambda: torch.gather(x, 0, idx64),
+        "torch.cuda._sleep(0)": lambda: torch.cuda._sleep(0),
+        "checks": new_checks,
+        "checks, ctypes route": old_checks,
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "lookup": lambda: cp._ext or cp.kernels(),
+        "lookup, ctypes route (a lock)": locked,
+        "stream": lambda: k.stream(0),
+        "stream, ctypes route (a Stream object)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "three data_ptr()": lambda: (x.data_ptr(), idx.data_ptr(),
+                                     out.data_ptr()),
+        "extension call, no launch": lambda: measure.noop(*ptrs, 9, 7,
+                                                          stream),
+        "ctypes call, no launch": lambda: cnoop(*ptrs, 9, 7, stream),
+    })
+    loop = 100
+    entry, chevron = shared_loops
+    loops = host_us({
+        "launch (C loop, the library's entry)":
+            lambda: measure.launch_loop(*ptrs, 9, 7, stream, loop),
+        "the same, shared CUDA runtime":
+            lambda: entry(*ptrs, 9, 7, stream, loop),
+        "kernel<<<>>> and cudaGetLastError, shared CUDA runtime":
+            lambda: chevron(*ptrs, 9, 7, stream, loop)},
+        calls=20, batch=1)
+    got.update({k: v / loop for k, v in loops.items()})
+    got["torch.cuda._sleep(0) device time (profiler)"] = device_ms(
+        lambda: torch.cuda._sleep(0), 100) * 1e3
+    return got
 
 
 def gunzip_members(blob: bytes):
@@ -615,6 +929,8 @@ def main() -> None:
     t1 = time.perf_counter()
     native.get_lib()
     t2 = time.perf_counter()
+    kernels_so = _build.kernels_library()
+    measure, shared_loops, measure_s = build_measure(kernels_so)
     lib = native.get_lib()
     check(lib.has_zstd, "the native library reaches no zstd >= 1.5 "
           f"(version {lib.zstd_version}): the lz4s -> zstd path needs "
@@ -629,11 +945,13 @@ def main() -> None:
                    check=True, capture_output=True)
     one_s = time.perf_counter() - t3
     os.remove(one)
-    print(f"build: kernels {t1 - t0:.2f} s ({len(srcs)} nvcc at once, then "
-          f"a link; built this run: "
-          f"{_build.BUILD_SECONDS['qztorch_kernels'] > 0}), native "
+    print(f"build: kernels and their binding {t1 - t0:.2f} s ({len(srcs)} "
+          f"nvcc and one cc over binding.c at once, then a link; built this "
+          f"run: {_build.BUILD_SECONDS['qztorch_kernels'] > 0}), native "
           f"{t2 - t1:.2f} s; one nvcc over all {len(srcs)} kernel sources "
-          f"{one_s:.2f} s; native linked with zstd {lib.zstd_version}")
+          f"{one_s:.2f} s; one cc over the measurement extension "
+          f"(binding.c and two entries) {measure_s:.2f} s; native linked "
+          f"with zstd {lib.zstd_version}")
     for ln in _build.BUILD_LOGS.get("qztorch_kernels", "").splitlines():
         if "Used" in ln or "Compiling entry" in ln:
             print("build: ptxas", ln.strip())
@@ -996,6 +1314,28 @@ def main() -> None:
     probe_kernels(dev, 128, record, adversarial, res)
     torch.cuda.empty_cache()
 
+    # the host cost of one call of every wrapper, then the sublane
+    # gather's part by part
+    costs = host_cost_table(dev)
+    for name, cost in costs.items():
+        if name == "roll_sum dynamic shifts":
+            res["roll_sum"]["host_us_per_call"]["dynamic shifts"] = cost
+        else:
+            res[name]["host_us_per_call"] = cost
+        lib_s = ("none" if cost["library"] is None
+                 else f"{cost['library']:.2f} us")
+        print(f"host cost of one call {name} {cost['shape']}: wrapper "
+              f"{cost['wrapper']:.2f} us, library call {lib_s} (host clock "
+              "over 1000 calls in batches of 100, no sync in a batch)")
+    parts = sublane_breakdown(dev, measure, shared_loops, kernels_so)
+    res["sublane_gather"]["host_breakdown_us"] = parts
+    res["sublane_gather"]["launch_floor_ms"] = (
+        parts["torch.cuda._sleep(0)"] / 1e3)
+    print("host cost breakdown of one sublane_gather call at (512, 128), "
+          "us a call (host clock over 1000 calls in batches of 100): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    torch.cuda.empty_cache()
+
     # -- 4. the tokenizer layer, then the paths ------------------------------------------
     full = len(data) // (TILE_B * n)           # full tiles only
 
@@ -1320,5 +1660,21 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def host_cost_only() -> None:
+    """``--host-cost``: the card line, then ``host_cost_table`` as one JSON
+    line. Run from another tree's root through runpy, it times that
+    tree's wrappers (a paired comparison)."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA device: torch.cuda is not "
+          "available")
+    from qatzip_tpu_torch.ops import cuda_pack
+    cuda_pack.kernels()
+    print(card_line())
+    print(json.dumps(host_cost_table(torch.device("cuda", 0))))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--host-cost"]:
+        host_cost_only()
+    else:
+        main()

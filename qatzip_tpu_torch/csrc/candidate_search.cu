@@ -47,6 +47,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+#include "qz_kernels.h"
+
 namespace {
 
 constexpr int kPer = 16;         // keys per thread
@@ -302,10 +305,9 @@ int launch(const void* key, const void* ctx, void* out, int rows, int w,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  candsearch_kernel<VEC, CTX><<<rows, threads, smem, stream>>>(
-      (const uint32_t*)key, (const uint32_t*)ctx, (uint32_t*)out, rows, w,
-      pbits, probes, min_match);
-  return (int)cudaGetLastError();
+  return qz::launch(candsearch_kernel<VEC, CTX>, rows, threads, smem, stream,
+                    (const uint32_t*)key, (const uint32_t*)ctx,
+                    (uint32_t*)out, rows, w, pbits, probes, min_match);
 }
 
 template <bool VEC>

@@ -32,13 +32,25 @@
 //                  memory: the (512, 128) plane is 256 KB, more than a
 //                  CTA's 227 KB of shared memory, and sits in L2;
 //   roll_sum       one warp per row, 4 words a thread (column 32 s + lane
-//                  in slot s); a shift k = 32 a + b reads lane (lane - b)
-//                  mod 32 of every slot with one __shfl_sync each, and a
-//                  thread takes slot (s - a) mod 4, or (s - a - 1) mod 4
-//                  where lane < b. The static variant's shifts (1, 2, 4,
-//                  ..., 64) are compile-time constants; the dynamic one
-//                  reads its shifts from a device tensor into shared
-//                  memory first, so the compiler cannot see them;
+//                  in slot s). The static variant's shifts (1, 2, 4, ...,
+//                  64) are compile-time constants: a shift k = 32 a + b
+//                  reads lane (lane - b) mod 32 of every slot with one
+//                  __shfl_sync each, and a thread takes slot (s - a) mod
+//                  4, or (s - a - 1) mod 4 where lane < b, picks that the
+//                  compiler resolves. The dynamic variant reads its shifts
+//                  (mod 128) from a device tensor into shared memory and
+//                  stages each warp's row twice over in 256 words of
+//                  shared memory (1 KB a warp), so that roll k of column c
+//                  is word 128 + c - k with no wrap to work out: a shift
+//                  costs a thread one subtraction, four shared loads at
+//                  fixed offsets and four adds, no select, in a loop
+//                  unrolled to the 32 shifts it may have. Lanes read
+//                  consecutive words, which a rotation keeps in 32
+//                  distinct banks. Shuffles with run-time picks, the first
+//                  design of both, took twice the static variant's device
+//                  time with run-time shifts; the staged rows, tried for
+//                  the static variant too, made it slower than its
+//                  shuffles;
 //   bitonic128     8 threads a row (4 rows a warp, 32 a CTA), 16
 //                  consecutive columns a thread (column 16 t + r in
 //                  register r of thread t), loaded and stored as 16-byte
@@ -64,6 +76,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
+#include "qz_kernels.h"
 
 namespace {
 
@@ -108,7 +123,8 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&t)[4], int j) {
   return j == 0 ? t[0] : j == 1 ? t[1] : j == 2 ? t[2] : t[3];
 }
 
-// acc[s] += roll(x, k, 1) at column 32 s + lane, for the row in v.
+// acc[s] += roll(x, k, 1) at column 32 s + lane, for the row in v; with k
+// a compile-time constant the slot picks resolve at compile time.
 __device__ __forceinline__ void add_roll(const uint32_t (&v)[4],
                                          uint32_t (&acc)[4], int k,
                                          int lane) {
@@ -128,21 +144,41 @@ __global__ void __launch_bounds__(kThreads)
 roll_sum_kernel(const uint32_t* __restrict__ x,
                 const int32_t* __restrict__ shifts, int nshift,
                 uint32_t* __restrict__ out, int rows) {
-  __shared__ int sh[kMaxShifts];
-  if (!kStatic && threadIdx.x < nshift) sh[threadIdx.x] = shifts[threadIdx.x];
-  __syncthreads();
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // a whole warp: one row per warp
   const size_t base = (size_t)row * kWidth;
-  uint32_t v[4], acc[4];
+  uint32_t acc[4];
+  if constexpr (kStatic) {
+    if (row >= rows) return;  // a whole warp: one row per warp
+    uint32_t v[4];
 #pragma unroll
-  for (int s = 0; s < 4; ++s) acc[s] = v[s] = x[base + 32 * s + lane];
-  if (kStatic) {
+    for (int s = 0; s < 4; ++s) acc[s] = v[s] = x[base + 32 * s + lane];
 #pragma unroll
     for (int i = 0; i < 7; ++i) add_roll(v, acc, 1 << i, lane);
   } else {
-    for (int i = 0; i < nshift; ++i) add_roll(v, acc, sh[i] & 127, lane);
+    __shared__ uint32_t stage[kWarps][2 * kWidth];  // each row twice over
+    __shared__ int sh[kMaxShifts];
+    if (threadIdx.x < nshift)
+      sh[threadIdx.x] = shifts[threadIdx.x] & (kWidth - 1);
+    const bool live = row < rows;
+    uint32_t* r = stage[threadIdx.x >> 5];
+    if (live) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        acc[s] = x[base + 32 * s + lane];
+        r[32 * s + lane] = r[kWidth + 32 * s + lane] = acc[s];
+      }
+    }
+    __syncthreads();  // the shifts and the staged rows
+    if (!live) return;
+    // roll(x, k, 1) at column 32 s + lane is word 128 + 32 s + lane - k
+#pragma unroll
+    for (int i = 0; i < kMaxShifts; ++i) {
+      if (i >= nshift) break;
+      const uint32_t* src = r + kWidth + lane - sh[i];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[s] += src[32 * s];
+    }
   }
 #pragma unroll
   for (int s = 0; s < 4; ++s) out[base + 32 * s + lane] = acc[s];
@@ -270,11 +306,10 @@ extern "C" int qz_lane_gather(const void* x, const void* idx, void* out,
                               int rows, int log_c, void* stream) {
   const int per_cta = kGatherWords >> log_c;
   const int blocks = (rows + per_cta - 1) / per_cta;
-  lane_gather_kernel<<<blocks, kThreads, kGatherWords * sizeof(uint32_t),
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out, rows, log_c,
-      per_cta);
-  return (int)cudaGetLastError();
+  return qz::launch(lane_gather_kernel, blocks, kThreads,
+                    kGatherWords * sizeof(uint32_t), stream,
+                    (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out,
+                    rows, log_c, per_cta);
 }
 
 extern "C" int qz_sublane_gather(const void* x, const void* idx, void* out,
@@ -282,25 +317,20 @@ extern "C" int qz_sublane_gather(const void* x, const void* idx, void* out,
   const size_t total = (size_t)1 << (log_r + log_c);
   const size_t want = (total + kThreads - 1) / kThreads;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  sublane_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out, log_r, log_c);
-  return (int)cudaGetLastError();
+  return qz::launch(sublane_gather_kernel, blocks, kThreads, 0, stream,
+                    (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out,
+                    log_r, log_c);
 }
 
 // shifts == nullptr: the static shifts 1, 2, 4, ..., 64.
 extern "C" int qz_roll_sum(const void* x, const void* shifts, int nshift,
                            void* out, int rows, void* stream) {
   if (nshift > kMaxShifts) return (int)cudaErrorInvalidValue;
-  if (shifts == nullptr)
-    roll_sum_kernel<true><<<warp_row_blocks(rows), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-        (const uint32_t*)x, nullptr, 0, (uint32_t*)out, rows);
-  else
-    roll_sum_kernel<false><<<warp_row_blocks(rows), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const int32_t*)shifts, nshift, (uint32_t*)out,
-        rows);
-  return (int)cudaGetLastError();
+  return qz::launch(shifts == nullptr ? roll_sum_kernel<true>
+                                       : roll_sum_kernel<false>,
+                    warp_row_blocks(rows), kThreads, 0, stream,
+                    (const uint32_t*)x, (const int32_t*)shifts, nshift,
+                    (uint32_t*)out, rows);
 }
 
 extern "C" int qz_bitonic128(const void* keys, const void* vals, void* kout,
@@ -308,15 +338,8 @@ extern "C" int qz_bitonic128(const void* keys, const void* vals, void* kout,
   const int blocks = (rows + kSortRows - 1) / kSortRows;
   const bool vec = aligned16(keys) && aligned16(vals) && aligned16(kout) &&
                    aligned16(vout);
-  if (vec)
-    bitonic128_kernel<true><<<blocks, kSortThreads, 0,
-                              (cudaStream_t)stream>>>(
-        (const uint32_t*)keys, (const uint32_t*)vals, (uint32_t*)kout,
-        (uint32_t*)vout, rows);
-  else
-    bitonic128_kernel<false><<<blocks, kSortThreads, 0,
-                               (cudaStream_t)stream>>>(
-        (const uint32_t*)keys, (const uint32_t*)vals, (uint32_t*)kout,
-        (uint32_t*)vout, rows);
-  return (int)cudaGetLastError();
+  return qz::launch(vec ? bitonic128_kernel<true> : bitonic128_kernel<false>,
+                    blocks, kSortThreads, 0, stream, (const uint32_t*)keys,
+                    (const uint32_t*)vals, (uint32_t*)kout, (uint32_t*)vout,
+                    rows);
 }

@@ -20,6 +20,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+#include "qz_kernels.h"
+
 namespace {
 
 constexpr int kLit = 286;
@@ -58,9 +61,8 @@ extern "C" int qz_huffman_lookup(const void* lit_pack, const void* dist_pack,
                                  const void* sym, const void* dsym, void* lout,
                                  void* dout, int rows, int n, void* stream) {
   const int per_row = (n + kSpan - 1) / kSpan;
-  lookup_kernel<<<rows * per_row, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)lit_pack, (const uint32_t*)dist_pack,
-      (const int32_t*)sym, (const int32_t*)dsym, (uint32_t*)lout,
-      (uint32_t*)dout, n, per_row);
-  return (int)cudaGetLastError();
+  return qz::launch(lookup_kernel, rows * per_row, kThreads, 0, stream,
+                    (const uint32_t*)lit_pack, (const uint32_t*)dist_pack,
+                    (const int32_t*)sym, (const int32_t*)dsym,
+                    (uint32_t*)lout, (uint32_t*)dout, n, per_row);
 }

@@ -70,6 +70,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+#include "qz_kernels.h"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -507,9 +510,8 @@ template <bool kVec>
 int launch(const Planes& in, uint32_t* words, int32_t* nbytes, uint8_t* ok,
            int rows, int n, int max_words, cudaStream_t st) {
   const size_t smem = (size_t)kRing * 4 + (size_t)((n + 31) / 32) * 4;
-  lz4_pack_rows_kernel<kVec><<<rows, kThreads, smem, st>>>(
-      in, words, nbytes, ok, n, max_words);
-  return (int)cudaGetLastError();
+  return qz::launch(lz4_pack_rows_kernel<kVec>, rows, kThreads, smem, st, in,
+                    words, nbytes, ok, n, max_words);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {

@@ -59,6 +59,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+#include "qz_kernels.h"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -410,9 +413,8 @@ int launch(const Planes& in, const int32_t* base, uint32_t* words,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pack_rows_kernel<kDyn, kVec><<<rows, kThreads, smem, st>>>(
-      in, base, words, end, n, max_words);
-  return (int)cudaGetLastError();
+  return qz::launch(pack_rows_kernel<kDyn, kVec>, rows, kThreads, smem, st,
+                    in, base, words, end, n, max_words);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {

@@ -45,6 +45,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+#include "qz_kernels.h"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -242,14 +245,7 @@ extern "C" int qz_parse_scan(const void* is_match, const void* ml,
   if (seg < 1 || seg > kMaxSeg) return (int)cudaErrorInvalidValue;
   const bool vec = seg % 16 == 0 && aligned16(is_match) && aligned16(ml) &&
                    aligned16(taken) && aligned16(lit);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (vec)
-    parse_scan_kernel<true><<<lanes, kThreads, 0, s>>>(
-        (const uint8_t*)is_match, (const int32_t*)ml, (uint8_t*)taken,
-        (uint8_t*)lit, seg);
-  else
-    parse_scan_kernel<false><<<lanes, kThreads, 0, s>>>(
-        (const uint8_t*)is_match, (const int32_t*)ml, (uint8_t*)taken,
-        (uint8_t*)lit, seg);
-  return (int)cudaGetLastError();
+  return qz::launch(vec ? parse_scan_kernel<true> : parse_scan_kernel<false>,
+                    lanes, kThreads, 0, stream, (const uint8_t*)is_match,
+                    (const int32_t*)ml, (uint8_t*)taken, (uint8_t*)lit, seg);
 }

@@ -24,6 +24,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+#include "qz_kernels.h"
+
 namespace {
 
 constexpr int kBins = 316;
@@ -61,7 +64,7 @@ hist_kernel(const int32_t* __restrict__ sym, const int32_t* __restrict__ dsym,
 extern "C" int qz_symbol_histogram(const void* sym, const void* dsym,
                                    void* hist, int rows, int n, void* stream) {
   const int per_row = (n + kSpan - 1) / kSpan;
-  hist_kernel<<<rows * per_row, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)sym, (const int32_t*)dsym, (int32_t*)hist, n, per_row);
-  return (int)cudaGetLastError();
+  return qz::launch(hist_kernel, rows * per_row, kThreads, 0, stream,
+                    (const int32_t*)sym, (const int32_t*)dsym, (int32_t*)hist,
+                    n, per_row);
 }

@@ -1,13 +1,16 @@
 """Build the port's native libraries at first use.
 
-Two libraries, both plain C ABIs loaded with ctypes, each built the same
-way: one compiler process per source, all started together, then a link:
+Two libraries, each built the same way: one compiler process per source,
+all started together, then a link:
 
-  * the CUDA kernels (``qatzip_tpu_torch/csrc/*.cu``), compiled by
-    ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c`` — pointers and
-    the stream cross as ``c_void_p``;
+  * the CUDA kernels with their Python binding, one extension module
+    (``_qz_kernels``): each ``qatzip_tpu_torch/csrc/*.cu`` compiled by
+    ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c``, ``binding.c``
+    (plain C against ``Python.h`` alone, no PyTorch header) by the host C
+    compiler, linked by ``nvcc -shared`` (the CUDA runtime linked
+    statically, as nvcc does by default) and imported from its path;
   * the port's own copy of the host C++ runtime (``csrc/qztpu_native.cpp``),
-    compiled by ``g++`` (see ``native.py``).
+    compiled by ``g++`` and loaded with ctypes (see ``native.py``).
 
 Outputs go to ``build/qatzip_tpu_torch/`` at the repository root, named
 by a hash of their sources and command line, so a changed source builds
@@ -22,9 +25,12 @@ from __future__ import annotations
 import fcntl
 import glob
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import time
 from typing import Callable, List, Sequence
 
@@ -108,13 +114,49 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def python_include() -> str:
+    """The directory of this interpreter's ``Python.h``."""
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise RuntimeError(f"Python.h not found in {inc}: the kernel binding "
+                           "of qatzip_tpu_torch cannot be built")
+    return inc
+
+
+def binding_command(src: str, obj: str) -> list:
+    """The host compiler's command for the binding's C source."""
+    cc = shutil.which("cc") or "gcc"
+    return [cc, "-std=c11", "-O2", "-fPIC", "-Wall", "-I", python_include(),
+            "-I", CSRC_DIR, "-c", "-o", obj, src]
+
+
 def kernels_library() -> str:
-    """Path of the CUDA kernel library, built for sm_90a if needed."""
+    """Path of the kernel extension module (the CUDA kernels for sm_90a
+    and ``binding.c``), built if needed."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    sources.append(os.path.join(CSRC_DIR, "binding.c"))
     nvcc = find_nvcc()
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+    def compile_one(src, obj):
+        if src.endswith(".c"):
+            return binding_command(src, obj)
+        return [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-c", "-o", obj, src]
     return build_library(
-        "qztorch_kernels", sources, [],
-        lambda src, obj: [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler",
-                          "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src],
-        lambda out, objs: [nvcc, *arch, "-shared", "-o", out, *objs])
+        "qztorch_kernels", sources,
+        sorted(glob.glob(os.path.join(CSRC_DIR, "*.h")) +
+               glob.glob(os.path.join(CSRC_DIR, "*.cuh"))), compile_one,
+        lambda out, objs: [nvcc, *arch, "-shared", "-o", out, *objs],
+        tag=" ".join(binding_command("SRC", "OBJ")))
+
+
+def load_kernels():
+    """The kernel extension module, built at first use."""
+    path = kernels_library()
+    loader = importlib.machinery.ExtensionFileLoader("_qz_kernels", path)
+    spec = importlib.util.spec_from_file_location("_qz_kernels", path,
+                                                  loader=loader)
+    mod = importlib.util.module_from_spec(spec)
+    loader.exec_module(mod)
+    return mod

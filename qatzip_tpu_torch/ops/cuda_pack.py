@@ -3,7 +3,8 @@
 Counterpart of ``qatzip_tpu/ops/pallas_pack.py``. Each kernel has:
 
   * a wrapper that checks device, dtype, shape and contiguity, launches
-    the kernel on the current stream for CUDA tensors, raises if the
+    the kernel on the tensors' device's current stream through the
+    extension module (:func:`kernels`) for CUDA tensors, raises if the
     launch was refused, and counts its launches in ``LAUNCHES``;
   * a plain PyTorch version (``*_ref``) of the same function, which the
     wrapper runs for CPU tensors (and only for them) and which the chip
@@ -36,7 +37,6 @@ overflow bucket) would sort first.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import torch
@@ -46,8 +46,10 @@ LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "pack_rows": 0,
             "lane_gather": 0, "sublane_gather": 0, "roll_sum": 0,
             "bitonic128": 0}
 
-_lib = None
-_lib_lock = threading.Lock()
+#: the kernel extension module once loaded (``kernels()``); a wrapper
+#: reads it as ``_ext or kernels()``, so no lock is taken after the load
+_ext = None
+_ext_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -56,58 +58,40 @@ def reset_launch_counts() -> None:
 
 
 def kernels():
-    """The CUDA kernel library, built with nvcc at first use."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            from ._build import kernels_library
-            lib = ctypes.CDLL(kernels_library())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.qz_candidate_search.restype = ci
-            lib.qz_candidate_search.argtypes = [vp, vp, vp, ci, ci, ci, ci,
-                                                ci, ci, vp]
-            lib.qz_parse_scan.restype = ci
-            lib.qz_parse_scan.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-            lib.qz_pack_rows.restype = ci
-            lib.qz_pack_rows.argtypes = [vp] * 10 + [ci, ci, ci, vp]
-            lib.qz_huffman_lookup.restype = ci
-            lib.qz_huffman_lookup.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                              vp]
-            lib.qz_symbol_histogram.restype = ci
-            lib.qz_symbol_histogram.argtypes = [vp, vp, vp, ci, ci, vp]
-            lib.qz_lz4_pack_rows.restype = ci
-            lib.qz_lz4_pack_rows.argtypes = [vp] * 8 + [ci, ci, ci, vp]
-            lib.qz_lane_gather.restype = ci
-            lib.qz_lane_gather.argtypes = [vp, vp, vp, ci, ci, vp]
-            lib.qz_sublane_gather.restype = ci
-            lib.qz_sublane_gather.argtypes = [vp, vp, vp, ci, ci, vp]
-            lib.qz_roll_sum.restype = ci
-            lib.qz_roll_sum.argtypes = [vp, vp, ci, vp, ci, vp]
-            lib.qz_bitonic128.restype = ci
-            lib.qz_bitonic128.argtypes = [vp, vp, vp, vp, ci, vp]
-            lib.qz_cuda_error_string.restype = ctypes.c_char_p
-            lib.qz_cuda_error_string.argtypes = [ci]
-            _lib = lib
-        return _lib
+    """The CUDA kernels' extension module (``csrc/binding.c``), built with
+    nvcc at first use: one function a kernel, named as the kernel, taking
+    the C entry's arguments as ints and raising RuntimeError if the launch
+    was refused; its ``stream(device_index)`` is the current raw stream of
+    that device (``torch._C._cuda_getCurrentRawStream``)."""
+    global _ext
+    with _ext_lock:
+        if _ext is None:
+            from ._build import load_kernels
+            ext = load_kernels()
+            ext.stream = torch._C._cuda_getCurrentRawStream
+            _ext = ext
+    return _ext
 
 
-def _check(name: str, rc: int) -> None:
-    if rc != 0:
-        msg = kernels().qz_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({msg})")
+def _device(t: torch.Tensor) -> int:
+    """The CUDA device index of ``t``, or -1 on the CPU; other devices
+    are refused."""
+    d = t.get_device()
+    if d < 0 and not t.is_cpu:
+        raise ValueError(f"unsupported device {t.device}")
+    return d
 
 
-def _require(t: torch.Tensor, what: str, dtype, device) -> None:
-    if t.dtype != dtype:
+def _require(t: torch.Tensor, what: str, dtype, dev: int) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on device index
+    ``dev`` (-1: the CPU)."""
+    if t.dtype is not dtype:
         raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.get_device() != dev:
+        raise ValueError(f"{what} is on {t.device}, expected "
+                         f"{'cpu' if dev < 0 else f'cuda:{dev}'}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -177,21 +161,18 @@ def candidate_search(key: torch.Tensor, ctx: torch.Tensor, *, probes: int,
         raise ValueError("ctx_words 1..4, probes 1..63, min_match 1..16")
     if tuple(ctx.shape[1:]) != (rows, w):
         raise ValueError(f"ctx shape {tuple(ctx.shape)} != (*, {rows}, {w})")
-    _require(key, "key", torch.int32, key.device)
-    _require(ctx, "ctx", torch.int32, key.device)
-    if key.device.type == "cpu":
+    dev = _device(key)
+    _require(key, "key", torch.int32, dev)
+    _require(ctx, "ctx", torch.int32, dev)
+    if dev < 0:
         return candidate_search_ref(key, ctx, probes=probes,
                                     min_match=min_match, pbits=pbits)
-    if key.device.type != "cuda":
-        raise ValueError(f"unsupported device {key.device}")
     out = torch.empty_like(key)
     if rows == 0:
         return out
-    lib = kernels()
-    rc = lib.qz_candidate_search(key.data_ptr(), ctx.data_ptr(),
-                                 out.data_ptr(), rows, w, pbits, ctx_words,
-                                 probes, min_match, _stream())
-    _check("candidate_search", rc)
+    k = _ext or kernels()
+    k.candidate_search(key.data_ptr(), ctx.data_ptr(), out.data_ptr(), rows,
+                       w, pbits, ctx_words, probes, min_match, k.stream(dev))
     LAUNCHES["candidate_search"] += 1
     return out
 
@@ -244,22 +225,19 @@ def parse_scan(is_match: torch.Tensor, ml: torch.Tensor, seg: int):
         raise ValueError(f"row length {n} is not a multiple of seg {seg}")
     if tuple(ml.shape) != (b, n):
         raise ValueError(f"ml shape {tuple(ml.shape)} != {(b, n)}")
-    _require(is_match, "is_match", torch.bool, is_match.device)
-    _require(ml, "ml", torch.int32, is_match.device)
-    if is_match.device.type == "cpu":
+    dev = _device(is_match)
+    _require(is_match, "is_match", torch.bool, dev)
+    _require(ml, "ml", torch.int32, dev)
+    if dev < 0:
         return parse_scan_ref(is_match, ml, seg)
-    if is_match.device.type != "cuda":
-        raise ValueError(f"unsupported device {is_match.device}")
     taken = torch.empty_like(is_match)
     lit = torch.empty_like(is_match)
     lanes = b * (n // seg)
     if lanes == 0:
         return taken, lit
-    lib = kernels()
-    rc = lib.qz_parse_scan(is_match.data_ptr(), ml.data_ptr(),
-                           taken.data_ptr(), lit.data_ptr(), lanes, seg,
-                           _stream())
-    _check("parse_scan", rc)
+    k = _ext or kernels()
+    k.parse_scan(is_match.data_ptr(), ml.data_ptr(), taken.data_ptr(),
+                 lit.data_ptr(), lanes, seg, k.stream(dev))
     LAUNCHES["parse_scan"] += 1
     return taken, lit
 
@@ -304,23 +282,21 @@ def huffman_lookup(lit_pack: torch.Tensor, dist_pack: torch.Tensor,
         raise ValueError(f"dsym shape {tuple(dsym.shape)} != {(b, n)}")
     if tuple(lit_pack.shape) != (b, 286) or tuple(dist_pack.shape) != (b, 30):
         raise ValueError("tables must be (B, 286) and (B, 30)")
-    for t, what in ((lit_pack, "lit_pack"), (dist_pack, "dist_pack"),
-                    (sym, "sym"), (dsym, "dsym")):
-        _require(t, what, torch.int32, sym.device)
-    if sym.device.type == "cpu":
+    dev = _device(sym)
+    _require(lit_pack, "lit_pack", torch.int32, dev)
+    _require(dist_pack, "dist_pack", torch.int32, dev)
+    _require(sym, "sym", torch.int32, dev)
+    _require(dsym, "dsym", torch.int32, dev)
+    if dev < 0:
         return huffman_lookup_ref(lit_pack, dist_pack, sym, dsym)
-    if sym.device.type != "cuda":
-        raise ValueError(f"unsupported device {sym.device}")
     lout = torch.empty_like(sym)
     dout = torch.empty_like(sym)
     if b == 0 or n == 0:
         return lout, dout
-    lib = kernels()
-    rc = lib.qz_huffman_lookup(lit_pack.data_ptr(), dist_pack.data_ptr(),
-                               sym.data_ptr(), dsym.data_ptr(),
-                               lout.data_ptr(), dout.data_ptr(), b, n,
-                               _stream())
-    _check("huffman_lookup", rc)
+    k = _ext or kernels()
+    k.huffman_lookup(lit_pack.data_ptr(), dist_pack.data_ptr(),
+                     sym.data_ptr(), dsym.data_ptr(), lout.data_ptr(),
+                     dout.data_ptr(), b, n, k.stream(dev))
     LAUNCHES["huffman_lookup"] += 1
     return lout, dout
 
@@ -361,18 +337,16 @@ def symbol_histogram(sym: torch.Tensor, dsym: torch.Tensor):
     b, n = sym.shape
     if tuple(dsym.shape) != (b, n):
         raise ValueError(f"dsym shape {tuple(dsym.shape)} != {(b, n)}")
-    _require(sym, "sym", torch.int32, sym.device)
-    _require(dsym, "dsym", torch.int32, sym.device)
-    if sym.device.type == "cpu":
+    dev = _device(sym)
+    _require(sym, "sym", torch.int32, dev)
+    _require(dsym, "dsym", torch.int32, dev)
+    if dev < 0:
         return symbol_histogram_ref(sym, dsym)
-    if sym.device.type != "cuda":
-        raise ValueError(f"unsupported device {sym.device}")
-    hist = torch.zeros((b, NBINS), dtype=torch.int32, device=sym.device)
+    hist = sym.new_zeros((b, NBINS))    # int32 on sym's device
     if b == 0 or n == 0:
         return hist
-    lib = kernels()
-    rc = lib.qz_symbol_histogram(sym.data_ptr(), dsym.data_ptr(),
-                                 hist.data_ptr(), b, n, _stream())
-    _check("symbol_histogram", rc)
+    k = _ext or kernels()
+    k.symbol_histogram(sym.data_ptr(), dsym.data_ptr(), hist.data_ptr(), b,
+                       n, k.stream(dev))
     LAUNCHES["symbol_histogram"] += 1
     return hist

@@ -46,8 +46,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .cuda_pack import (LAUNCHES, _as_i32, _check, _require, _stream,
-                        huffman_lookup, kernels, symbol_histogram)
+from . import cuda_pack as cp
+from .cuda_pack import (LAUNCHES, _as_i32, _device, _require, huffman_lookup,
+                        symbol_histogram)
 from .lz77 import _analyze
 
 HDR_BITS = 3         # BFINAL + BTYPE(01), emitted as 0b010 (BFINAL=0)
@@ -325,38 +326,38 @@ def pack_rows(ml, dist, taken, lit, base, *, max_words: int, data=None,
     On the card the kernel holds a row in shared memory, so
     ``max_words`` is at most ``(MAX_SMEM - PACK_ROWS_SMEM_EXTRA) // 4``.
     """
-    b, n = ml.shape
+    shape = ml.shape
+    b, n = shape
+    dev = _device(ml)
     planes = [(ml, "ml", torch.int32), (dist, "dist", torch.int32),
               (taken, "taken", torch.bool), (lit, "lit", torch.bool)]
     for t, what, dtype in planes + _mode_planes(data, lpack, dpack):
-        if tuple(t.shape) != (b, n):
+        if t.shape != shape:
             raise ValueError(f"{what} shape {tuple(t.shape)} != {(b, n)}")
-        _require(t, what, dtype, ml.device)
-    if tuple(base.shape) != (b,):
+        _require(t, what, dtype, dev)
+    if base.shape != (b,):
         raise ValueError(f"base shape {tuple(base.shape)} != {(b,)}")
-    _require(base, "base", torch.int32, ml.device)
+    _require(base, "base", torch.int32, dev)
     if max_words < 1:
         raise ValueError(f"max_words {max_words} must be positive")
-    if ml.device.type == "cpu":
+    if dev < 0:
         return pack_rows_ref(ml, dist, taken, lit, base, max_words=max_words,
                              data=data, lpack=lpack, dpack=dpack)
-    if ml.device.type != "cuda":
-        raise ValueError(f"unsupported device {ml.device}")
     if max_words * 4 + PACK_ROWS_SMEM_EXTRA > MAX_SMEM:
         raise ValueError(f"a row of {max_words} words does not fit the "
                          f"{MAX_SMEM} bytes of shared memory of one CTA")
-    words = torch.empty((b, max_words), dtype=torch.int32, device=ml.device)
-    end = torch.empty((b,), dtype=torch.int32, device=ml.device)
+    words = ml.new_empty((b, max_words))    # int32 on ml's device
+    end = ml.new_empty((b,))
     if b == 0:
         return words, end
 
     def ptr(t):
-        return None if t is None else t.data_ptr()
-    rc = kernels().qz_pack_rows(
-        ptr(data), ml.data_ptr(), dist.data_ptr(), taken.data_ptr(),
-        lit.data_ptr(), ptr(lpack), ptr(dpack), base.data_ptr(),
-        words.data_ptr(), end.data_ptr(), b, n, max_words, _stream())
-    _check("pack_rows", rc)
+        return 0 if t is None else t.data_ptr()
+    k = cp._ext or cp.kernels()
+    k.pack_rows(ptr(data), ml.data_ptr(), dist.data_ptr(), taken.data_ptr(),
+                lit.data_ptr(), ptr(lpack), ptr(dpack), base.data_ptr(),
+                words.data_ptr(), end.data_ptr(), b, n, max_words,
+                k.stream(dev))
     LAUNCHES["pack_rows"] += 1
     return words, end
 

@@ -29,7 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .cuda_pack import LAUNCHES, _as_i32, _check, _require, _stream, kernels
+from . import cuda_pack as cp
+from .cuda_pack import LAUNCHES, _as_i32, _device, _require
 
 MASK32 = 0xFFFFFFFF
 WIDTH = 128                         # the roll and sort rows
@@ -44,10 +45,17 @@ def _log2(n: int, what: str, lo: int, hi: int) -> int:
     return n.bit_length() - 1
 
 
-def _device(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
+def _pair(a: torch.Tensor, b: torch.Tensor, name_a: str, name_b: str) -> int:
+    """The CUDA device index of two contiguous int32 tensors on one device
+    (-1: the CPU), in one pass of attribute reads; anything else is
+    refused as ``_require`` refuses it, naming the tensor."""
+    dev = a.get_device()
+    if not (a.dtype is torch.int32 and b.dtype is torch.int32
+            and b.get_device() == dev and a.is_contiguous()
+            and b.is_contiguous() and (dev >= 0 or a.is_cpu)):
+        _require(a, name_a, torch.int32, _device(a))
+        _require(b, name_b, torch.int32, dev)
+    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -70,20 +78,20 @@ def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Returns:
       (R, C) int32.
     """
-    rows, c = x.shape
+    shape = x.shape
+    rows, c = shape
     log_c = _log2(c, "row width", 4, MAX_GATHER_WIDTH)
-    if tuple(idx.shape) != (rows, c):
+    if idx.shape != shape:
         raise ValueError(f"idx shape {tuple(idx.shape)} != {(rows, c)}")
-    _require(x, "x", torch.int32, x.device)
-    _require(idx, "idx", torch.int32, x.device)
-    if _device(x) == "cpu":
+    dev = _pair(x, idx, "x", "idx")
+    if dev < 0:
         return lane_gather_ref(x, idx)
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    _check("lane_gather", kernels().qz_lane_gather(
-        x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, log_c,
-        _stream()))
+    k = cp._ext or cp.kernels()
+    k.lane_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, log_c,
+                  k.stream(dev))
     LAUNCHES["lane_gather"] += 1
     return out
 
@@ -104,21 +112,21 @@ def sublane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Returns:
       (R, C) int32.
     """
-    rows, c = x.shape
-    log_r = _log2(rows, "row count", 1, 1 << 30)
-    log_c = _log2(c, "row width", 1, 1 << 30)
-    if log_r + log_c > 30:
-        raise ValueError(f"plane ({rows}, {c}) is too large")
-    if tuple(idx.shape) != (rows, c):
+    shape = x.shape
+    rows, c = shape
+    if rows & (rows - 1) or c & (c - 1) or not 0 < rows * c <= 1 << 30:
+        raise ValueError(f"plane ({rows}, {c}): R and C must be powers of "
+                         "two, R * C at most 2**30")
+    if idx.shape != shape:
         raise ValueError(f"idx shape {tuple(idx.shape)} != {(rows, c)}")
-    _require(x, "x", torch.int32, x.device)
-    _require(idx, "idx", torch.int32, x.device)
-    if _device(x) == "cpu":
+    dev = _pair(x, idx, "x", "idx")
+    if dev < 0:
         return sublane_gather_ref(x, idx)
     out = torch.empty_like(x)
-    _check("sublane_gather", kernels().qz_sublane_gather(
-        x.data_ptr(), idx.data_ptr(), out.data_ptr(), log_r, log_c,
-        _stream()))
+    k = cp._ext or cp.kernels()
+    k.sublane_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                     rows.bit_length() - 1, c.bit_length() - 1,
+                     k.stream(dev))
     LAUNCHES["sublane_gather"] += 1
     return out
 
@@ -156,20 +164,23 @@ def roll_sum(x: torch.Tensor,
     rows, w = x.shape
     if w != WIDTH:
         raise ValueError(f"rows must be {WIDTH} wide, got {w}")
-    _require(x, "x", torch.int32, x.device)
-    if shifts is not None:
-        if shifts.dim() != 1 or not 1 <= shifts.numel() <= MAX_SHIFTS:
+    if shifts is None:
+        nshift = 0
+        dev = _device(x)
+        _require(x, "x", torch.int32, dev)
+    else:
+        nshift = shifts.numel()
+        if shifts.dim() != 1 or not 1 <= nshift <= MAX_SHIFTS:
             raise ValueError(f"shifts must be 1..{MAX_SHIFTS} values")
-        _require(shifts, "shifts", torch.int32, x.device)
-    if _device(x) == "cpu":
+        dev = _pair(x, shifts, "x", "shifts")
+    if dev < 0:
         return roll_sum_ref(x, shifts)
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    _check("roll_sum", kernels().qz_roll_sum(
-        x.data_ptr(), None if shifts is None else shifts.data_ptr(),
-        0 if shifts is None else shifts.numel(), out.data_ptr(), rows,
-        _stream()))
+    k = cp._ext or cp.kernels()
+    k.roll_sum(x.data_ptr(), 0 if shifts is None else shifts.data_ptr(),
+               nshift, out.data_ptr(), rows, k.stream(dev))
     LAUNCHES["roll_sum"] += 1
     return out
 
@@ -219,18 +230,17 @@ def bitonic128(keys: torch.Tensor, vals: torch.Tensor
       (keys, vals) sorted, (R, 128) int32 each.
     """
     rows, w = keys.shape
-    if w != WIDTH or tuple(vals.shape) != (rows, w):
+    if w != WIDTH or vals.shape != keys.shape:
         raise ValueError(f"keys and vals must be (R, {WIDTH})")
-    _require(keys, "keys", torch.int32, keys.device)
-    _require(vals, "vals", torch.int32, keys.device)
-    if _device(keys) == "cpu":
+    dev = _pair(keys, vals, "keys", "vals")
+    if dev < 0:
         return bitonic128_ref(keys, vals)
     kout = torch.empty_like(keys)
     vout = torch.empty_like(vals)
     if rows == 0:
         return kout, vout
-    _check("bitonic128", kernels().qz_bitonic128(
-        keys.data_ptr(), vals.data_ptr(), kout.data_ptr(), vout.data_ptr(),
-        rows, _stream()))
+    k = cp._ext or cp.kernels()
+    k.bitonic128(keys.data_ptr(), vals.data_ptr(), kout.data_ptr(),
+                 vout.data_ptr(), rows, k.stream(dev))
     LAUNCHES["bitonic128"] += 1
     return kout, vout

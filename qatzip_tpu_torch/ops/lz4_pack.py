@@ -34,7 +34,8 @@ from typing import Tuple
 
 import torch
 
-from .cuda_pack import LAUNCHES, _as_i32, _check, _require, _stream, kernels
+from . import cuda_pack as cp
+from .cuda_pack import LAUNCHES, _as_i32, _device, _require
 from .lz77 import _analyze
 
 LZ4_MAX_MATCH = 273     # stored length overflow <= 254: one byte
@@ -167,37 +168,37 @@ def lz4_pack_rows(data, ml, dist, taken, lit, *, max_words: int
     without opting in (``LZ4_SMEM_LIMIT``), so ``n`` is at most 105,472;
     ``max_words`` is free.
     """
-    b, n = ml.shape
+    shape = ml.shape
+    b, n = shape
+    dev = _device(ml)
     for t, what, dtype in ((data, "data", torch.uint8),
                            (ml, "ml", torch.int32),
                            (dist, "dist", torch.int32),
                            (taken, "taken", torch.bool),
                            (lit, "lit", torch.bool)):
-        if tuple(t.shape) != (b, n):
+        if t.shape != shape:
             raise ValueError(f"{what} shape {tuple(t.shape)} != {(b, n)}")
-        _require(t, what, dtype, ml.device)
+        _require(t, what, dtype, dev)
     if max_words < 1:
         raise ValueError(f"max_words {max_words} must be positive")
-    if ml.device.type == "cpu":
+    if dev < 0:
         return lz4_pack_rows_ref(data, ml, dist, taken, lit,
                                  max_words=max_words)
-    if ml.device.type != "cuda":
-        raise ValueError(f"unsupported device {ml.device}")
     smem = 4 * LZ4_RING_WORDS + (n + 31) // 32 * 4 + LZ4_SMEM_EXTRA
     if smem > LZ4_SMEM_LIMIT:
         raise ValueError(f"the literal bitmap of a row of {n} positions "
                          f"does not fit the {LZ4_SMEM_LIMIT} bytes of "
                          "shared memory of one CTA")
-    words = torch.empty((b, max_words), dtype=torch.int32, device=ml.device)
-    nbytes = torch.empty((b,), dtype=torch.int32, device=ml.device)
-    ok = torch.empty((b,), dtype=torch.bool, device=ml.device)
+    words = ml.new_empty((b, max_words))    # int32 on ml's device
+    nbytes = ml.new_empty((b,))
+    ok = taken.new_empty((b,))               # bool
     if b == 0:
         return words, nbytes, ok
-    rc = kernels().qz_lz4_pack_rows(
-        data.data_ptr(), ml.data_ptr(), dist.data_ptr(), taken.data_ptr(),
-        lit.data_ptr(), words.data_ptr(), nbytes.data_ptr(), ok.data_ptr(),
-        b, n, max_words, _stream())
-    _check("lz4_pack_rows", rc)
+    k = cp._ext or cp.kernels()
+    k.lz4_pack_rows(data.data_ptr(), ml.data_ptr(), dist.data_ptr(),
+                    taken.data_ptr(), lit.data_ptr(), words.data_ptr(),
+                    nbytes.data_ptr(), ok.data_ptr(), b, n, max_words,
+                    k.stream(dev))
     LAUNCHES["lz4_pack_rows"] += 1
     return words, nbytes, ok
 

@@ -302,7 +302,7 @@ def qz_get_software_component_version_list() -> list:
         {"name": "torch", "version": torch.__version__},
         {"name": "cuda", "version": torch.version.cuda or "none"},
         {"name": "qztorch_kernels",
-         "version": "loaded" if cuda_pack._lib is not None else "not built"},
+         "version": "loaded" if cuda_pack._ext is not None else "not built"},
         {"name": "qztorch_native",
          "version": "loaded" if native._lib is not None else "not built"},
     ]

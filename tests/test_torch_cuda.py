@@ -659,9 +659,10 @@ def test_sublane_gather_kernel_matches_plain(card, shape):
 
 @pytest.mark.parametrize("shifts", [
     None, (1, 3, 9, 27, 31, 77, 111), (0, 127), (-1, -33, 200, 128, 96),
-    tuple(range(0, 128, 4))],
-    ids=["static", "dynamic", "0-127", "negative-wrap", "32-shifts"])
-@pytest.mark.parametrize("rows", [4096, 1001])
+    tuple(range(0, 128, 4)), (5, 5, 133, 5, -123, 0, 0, 127, 127)],
+    ids=["static", "dynamic", "0-127", "negative-wrap", "32-shifts",
+         "repeated"])
+@pytest.mark.parametrize("rows", [4096, 1001, 1, 7, 9])
 def test_roll_sum_kernel_matches_plain(card, shifts, rows):
     from qatzip_tpu_torch.ops import devprims as dv
     x = _words(np.random.default_rng(23), (rows, 128))
@@ -775,3 +776,135 @@ def test_row_split_on_card_matches_cpu(card, static, sw_backup):
     assert outs[0] == outs[1]
     d = _zlib.decompressobj(31)
     assert d.decompress(outs[1]) == data[:262144]
+
+
+# ---------------------------------------------------------------------------
+# the binding: every wrapper on the caller's stream, refused launches
+# ---------------------------------------------------------------------------
+
+def _card_calls(kernel):
+    """(call, plain, host tensors) of one kernel wrapper at a small shape:
+    ``call(*tensors)`` runs the wrapper, ``plain(*host)`` its plain
+    version on the host tensors."""
+    from qatzip_tpu_torch.ops import devprims as dv
+    rng = np.random.default_rng(61)
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32))
+    if kernel == "candidate_search":
+        key, ctx, pbits = _k2_inputs(256, 6, 3, seed=5)
+        kw = dict(probes=7, min_match=4, pbits=pbits)
+        return (lambda k, c: cuda_pack.candidate_search(k, c, **kw),
+                lambda k, c: cuda_pack.candidate_search_ref(k, c, **kw),
+                [key, ctx])
+    if kernel == "parse_scan":
+        im, ml = parse_plane("past-end", 2, 2, 512, seed=3)
+        return (lambda a, b: cuda_pack.parse_scan(a, b, 512),
+                lambda a, b: cuda_pack.parse_scan_ref(a, b, 512),
+                [torch.from_numpy(im), torch.from_numpy(ml)])
+    if kernel == "pack_rows":
+        args, kw, _plan = pack_args("far-4", pack_plane("far-4", 2, 1024),
+                                    True)
+        mw = _max_words(1024, True)
+
+        def run(f):
+            return lambda *t: f(*t[:5], max_words=mw, lpack=t[5], dpack=t[6])
+        return (run(dp.pack_rows), run(dp.pack_rows_ref),
+                args + [kw["lpack"], kw["dpack"]])
+    if kernel == "huffman_lookup":
+        return (cuda_pack.huffman_lookup, cuda_pack.huffman_lookup_ref,
+                [ints(0, 1 << 20, (3, 286)), ints(0, 1 << 20, (3, 30)),
+                 ints(-5, 300, (3, 1000)), ints(-5, 40, (3, 1000))])
+    if kernel == "symbol_histogram":
+        return (cuda_pack.symbol_histogram, cuda_pack.symbol_histogram_ref,
+                [ints(-5, 330, (3, 1000)), ints(270, 330, (3, 1000))])
+    if kernel == "lz4_pack_rows":
+        mw = lp.lz4_max_words(1024)
+        data, lengths = lz4_rows(1024)
+        planes = lp.lz4_planes(data, lengths, n=1024)
+        host = [data] + [p.to(torch.int32) if p.dtype != torch.bool else p
+                         for p in planes]
+        return (lambda *t: lp.lz4_pack_rows(*t, max_words=mw),
+                lambda *t: lp.lz4_pack_rows_ref(*t, max_words=mw), host)
+    if kernel == "lane_gather":
+        return (dv.lane_gather, dv.lane_gather_ref,
+                [_words(rng, (64, 128)), ints(-128, 128, (64, 128))])
+    if kernel == "sublane_gather":
+        return (dv.sublane_gather, dv.sublane_gather_ref,
+                [_words(rng, (512, 128)), ints(-512, 512, (512, 128))])
+    if kernel == "roll_sum":
+        return (dv.roll_sum, dv.roll_sum_ref,
+                [_words(rng, (1001, 128)),
+                 torch.tensor((1, 3, 9, 27, 31, 77, 111), dtype=torch.int32)])
+    if kernel == "bitonic128":
+        return (dv.bitonic128, dv.bitonic128_ref,
+                [_bitonic_keys("ties-bit31", rng, 37), _words(rng, (37, 128))])
+    raise ValueError(kernel)
+
+
+@pytest.mark.parametrize("kernel", sorted(cuda_pack.LAUNCHES))
+def test_wrapper_launches_on_the_current_side_stream(card, kernel):
+    """Inside ``torch.cuda.stream(side)``, with its inputs made on that
+    stream behind a ~10 ms sleep, each wrapper launches its kernel once
+    on ``side``: a launch on any other stream would read the inputs
+    before they exist. After ``side.synchronize()`` the result equals the
+    plain version's."""
+    call, plain, host = _card_calls(kernel)
+    staged = [t.to(card) for t in host]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = cuda_pack.LAUNCHES[kernel]
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        got = call(*[t.clone() for t in staged])
+    assert cuda_pack.LAUNCHES[kernel] == before + 1
+    side.synchronize()
+    want = plain(*host)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_refused_launch_raises_and_is_not_counted(card, monkeypatch):
+    """A launch the C entry refuses raises RuntimeError through the
+    wrapper, nothing takes a plain version's place, and the launch is not
+    counted: 33 run-time shifts (the roll kernel stages 32) and a row
+    image past a CTA's shared memory (the row bit-packer), each let past
+    the wrapper's own check; then the same through the binding alone,
+    and a launch the CUDA runtime itself refuses."""
+    from qatzip_tpu_torch.ops import devprims as dv
+    x = torch.zeros((8, 128), dtype=torch.int32, device=card)
+    sh = torch.ones(33, dtype=torch.int32, device=card)
+    before = dict(cuda_pack.LAUNCHES)
+    monkeypatch.setattr(dv, "MAX_SHIFTS", 64)
+    with pytest.raises(RuntimeError, match=r"^roll_sum launch failed: "
+                       r"cudaError 1 "):
+        dv.roll_sum(x, sh)
+    args, kw, _plan = pack_args("far-4", pack_plane("far-4", 1, 512), False)
+    on_card = [a.to(card) for a in args]
+    monkeypatch.setattr(dp, "MAX_SMEM", 1 << 30)
+    with pytest.raises(RuntimeError, match=r"^pack_rows launch failed: "):
+        dp.pack_rows(*on_card, max_words=1 << 20,
+                     data=kw["data"].to(card))
+    assert cuda_pack.LAUNCHES == before
+    k = cuda_pack.kernels()
+    out = torch.empty_like(x)
+    with pytest.raises(RuntimeError, match="cudaError 1 "):
+        k.roll_sum(x.data_ptr(), sh.data_ptr(), 33, out.data_ptr(), 8,
+                   k.stream(card.index))
+    k.roll_sum(x.data_ptr(), sh.data_ptr(), 32, out.data_ptr(), 8,
+               k.stream(card.index))
+    torch.cuda.synchronize()
+    assert torch.equal(out, x)
+    # a launch the CUDA runtime refuses (a grid of no blocks), then the
+    # next launch runs: the error is not left behind
+    hist = torch.zeros((1, cuda_pack.NBINS), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match=r"^symbol_histogram launch "
+                       r"failed: cudaError 9 \(invalid configuration"):
+        k.symbol_histogram(x.data_ptr(), x.data_ptr(), hist.data_ptr(), 0,
+                           128, k.stream(card.index))
+    sym = torch.arange(256, dtype=torch.int32, device=card)[None]
+    got = cuda_pack.symbol_histogram(sym, sym)
+    assert torch.equal(got.cpu(), cuda_pack.symbol_histogram_ref(
+        sym.cpu(), sym.cpu()))

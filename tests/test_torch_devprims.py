@@ -196,19 +196,164 @@ def test_tool_runs_on_the_cpu_with_the_jax_kernels_sums(jax_kernels):
         assert ln["best_ms"] > 0 and ln["bound_ms"] > 0 and ln["gbps"] > 0
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take():
-    x = torch.zeros((8, 96), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        dv.lane_gather(x, x)                     # width not a power of two
-    with pytest.raises(ValueError):
-        dv.roll_sum(x)                           # rows not 128 wide
-    y = torch.zeros((8, 128), dtype=torch.int32)
+def _wrapper_calls():
+    """{kernel: (call, tensors, bad_shapes)}: each wrapper's call on small
+    valid CPU tensors (``call(*tensors)``), and argument lists whose
+    shapes or extents its kernel does not take."""
+    from qatzip_tpu_torch.ops import cuda_pack as cp
+    from qatzip_tpu_torch.ops import deflate_pack as dp
+    from qatzip_tpu_torch.ops import lz4_pack as lp
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype)
+    key = (torch.arange(256, dtype=torch.int32) | (5 << 8)).expand(2, 256)
+    b8, i32 = torch.bool, torch.int32
+    planes = [z(2, 256), z(2, 256), z(2, 256, dtype=b8), z(2, 256, dtype=b8)]
+    lz4 = [z(2, 256, dtype=torch.uint8)] + planes
+    return {
+        "candidate_search": (
+            lambda k, c: cp.candidate_search(k, c, probes=7, min_match=4,
+                                             pbits=8),
+            [key.contiguous(), z(3, 2, 256)],
+            [[z(2, 96), z(3, 2, 96)], [key.contiguous(), z(3, 2, 128)]]),
+        "parse_scan": (lambda im, ml: cp.parse_scan(im, ml, 64),
+                       [z(2, 256, dtype=b8), z(2, 256)],
+                       [[z(2, 200, dtype=b8), z(2, 200)],
+                        [z(2, 256, dtype=b8), z(2, 128)]]),
+        "pack_rows": (
+            lambda *t: dp.pack_rows(*t[:4], t[4], max_words=64, lpack=t[5],
+                                    dpack=t[6]),
+            planes + [z(2), z(2, 256), z(2, 256)],
+            [planes[:3] + [z(2, 128, dtype=b8), z(2), z(2, 256), z(2, 256)],
+             planes + [z(3), z(2, 256), z(2, 256)]]),
+        "huffman_lookup": (cp.huffman_lookup,
+                           [z(2, 286), z(2, 30), z(2, 256), z(2, 256)],
+                           [[z(2, 285), z(2, 30), z(2, 256), z(2, 256)],
+                            [z(2, 286), z(2, 30), z(2, 256), z(2, 255)]]),
+        "symbol_histogram": (cp.symbol_histogram, [z(2, 256), z(2, 256)],
+                             [[z(2, 256), z(3, 256)]]),
+        "lz4_pack_rows": (lambda *t: lp.lz4_pack_rows(*t, max_words=64), lz4,
+                          [lz4[:4] + [z(2, 128, dtype=b8)]]),
+        "lane_gather": (dv.lane_gather, [z(8, 128), z(8, 128)],
+                        [[z(8, 96), z(8, 96)], [z(8, 128), z(8, 64)]]),
+        "sublane_gather": (dv.sublane_gather, [z(8, 128), z(8, 128)],
+                           [[z(6, 128), z(6, 128)], [z(8, 128), z(4, 128)]]),
+        "roll_sum": (dv.roll_sum, [z(8, 128), torch.tensor([1, 5], dtype=i32)],
+                     [[z(8, 96), None], [z(8, 128), z(33)],
+                      [z(8, 128), z(0)]]),
+        "bitonic128": (dv.bitonic128, [z(8, 128), z(8, 128)],
+                       [[z(8, 64), z(8, 64)], [z(8, 128), z(7, 128)]]),
+    }
+
+
+@pytest.mark.parametrize("kernel", sorted(dv.LAUNCHES))
+def test_wrappers_refuse_what_the_kernels_do_not_take(kernel):
+    """Every wrapper refuses, before its kernel could run, each of its
+    tensors in a wrong dtype (TypeError) and laid out non-contiguously
+    (ValueError), and shapes its kernel does not take (ValueError); its
+    valid call on the CPU runs the plain version and launches nothing."""
+    call, tensors, bad_shapes = _wrapper_calls()[kernel]
+    before = dict(dv.LAUNCHES)
+    call(*tensors)
+    for i, t in enumerate(tensors):
+        args = list(tensors)
+        args[i] = t.to(torch.int64)
+        with pytest.raises(TypeError):
+            call(*args)
+        args[i] = torch.stack([t, t], dim=-1)[..., 0]
+        assert args[i].shape == t.shape and not args[i].is_contiguous()
+        with pytest.raises(ValueError):
+            call(*args)
+    for args in bad_shapes:
+        with pytest.raises(ValueError):
+            call(*args)
+    assert dv.LAUNCHES == before
+
+
+# every C entry of qz_kernels.h as a stub that returns ``rc_next``; the
+# sublane gather's also keeps its arguments in ``seen``
+BINDING_STUBS = r"""
+#include <stdint.h>
+#include "qz_kernels.h"
+int rc_next;
+long long seen[6];
+#define STUB(name, ...) int name(__VA_ARGS__) { return rc_next; }
+STUB(qz_candidate_search, const void* a, const void* b, void* c, int d,
+     int e, int f, int g, int h, int i, void* s)
+STUB(qz_parse_scan, const void* a, const void* b, void* c, void* d, int e,
+     int f, void* s)
+STUB(qz_pack_rows, const void* a, const void* b, const void* c,
+     const void* d, const void* e, const void* f, const void* g,
+     const void* h, void* i, void* j, int k, int l, int m, void* s)
+STUB(qz_huffman_lookup, const void* a, const void* b, const void* c,
+     const void* d, void* e, void* f, int g, int h, void* s)
+STUB(qz_symbol_histogram, const void* a, const void* b, void* c, int d,
+     int e, void* s)
+STUB(qz_lz4_pack_rows, const void* a, const void* b, const void* c,
+     const void* d, const void* e, void* f, void* g, void* h, int i, int j,
+     int k, void* s)
+STUB(qz_lane_gather, const void* a, const void* b, void* c, int d, int e,
+     void* s)
+STUB(qz_roll_sum, const void* a, const void* b, int c, void* d, int e,
+     void* s)
+STUB(qz_bitonic128, const void* a, const void* b, void* c, void* d, int e,
+     void* s)
+int qz_sublane_gather(const void* x, const void* idx, void* out, int log_r,
+                      int log_c, void* s) {
+  seen[0] = (intptr_t)x; seen[1] = (intptr_t)idx; seen[2] = (intptr_t)out;
+  seen[3] = log_r; seen[4] = log_c; seen[5] = (intptr_t)s;
+  return rc_next;
+}
+const char* qz_cuda_error_string(int code) { return "stub error"; }
+"""
+
+
+def test_kernel_binding_builds_with_the_host_compiler(tmp_path):
+    """``csrc/binding.c`` compiles warning-free with the build's own host
+    compiler command against Python.h and qz_kernels.h alone (no nvcc, no
+    PyTorch header), and, linked with stubs for the CUDA entries, passes
+    each argument through, returns None, raises RuntimeError when the
+    entry reports a refused launch, and refuses arguments that are not
+    ints, out of range or miscounted."""
+    import importlib.machinery
+    import importlib.util
+    from qatzip_tpu_torch.ops import _build
+    stub = tmp_path / "stubs.c"
+    stub.write_text(BINDING_STUBS)
+    objs = [str(tmp_path / "binding.o"), str(tmp_path / "stubs.o")]
+    log = _build._run_all([
+        _build.binding_command(os.path.join(_build.CSRC_DIR, "binding.c"),
+                               objs[0]),
+        _build.binding_command(str(stub), objs[1])])
+    assert "warning" not in log, log
+    so = str(tmp_path / "_qz_kernels.so")
+    _build._run_all([["cc", "-shared", "-o", so, *objs]])
+    loader = importlib.machinery.ExtensionFileLoader("_qz_kernels", so)
+    spec = importlib.util.spec_from_file_location("_qz_kernels", so,
+                                                  loader=loader)
+    ext = importlib.util.module_from_spec(spec)
+    loader.exec_module(ext)
+    assert {n for n in dir(ext) if not n.startswith("_")} == set(dv.LAUNCHES)
+    lib = ctypes.CDLL(so)
+    rc = ctypes.c_int.in_dll(lib, "rc_next")
+    seen = (ctypes.c_longlong * 6).in_dll(lib, "seen")
+    big = (1 << 47) + 16
+    assert ext.sublane_gather(big, 0, big + 64, 9, 7, 12345) is None
+    assert list(seen) == [big, 0, big + 64, 9, 7, 12345]
+    rc.value = 2
+    with pytest.raises(RuntimeError, match=r"^sublane_gather launch failed: "
+                       r"cudaError 2 \(stub error\)$"):
+        ext.sublane_gather(1, 2, 3, 4, 5, 6)
+    rc.value = 0
     with pytest.raises(TypeError):
-        dv.bitonic128(y.to(torch.int64), y)
-    with pytest.raises(ValueError):
-        dv.roll_sum(y, torch.zeros(33, dtype=torch.int32))
-    with pytest.raises(ValueError):
-        dv.sublane_gather(torch.zeros((128, 8), dtype=torch.int32).t(), y)
+        ext.sublane_gather(1, 2, 3, 4, 5)
+    with pytest.raises(TypeError):
+        ext.roll_sum(1, None, 0, 3, 4, 5)
+    with pytest.raises(OverflowError):
+        ext.lane_gather(1, 2, 3, 1 << 31, 5, 6)
+    with pytest.raises(OverflowError):
+        ext.lane_gather(-1, 2, 3, 4, 5, 6)
+    assert ext.pack_rows(*range(1, 15)) is None
 
 
 def test_port_tool_and_chip_check_import_without_jax():
