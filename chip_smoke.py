@@ -70,7 +70,21 @@ exits non-zero without the final line:
      split (the 64 MiB request in 256 KiB chunks, four 64 KiB rows each,
      on a dynamic session: stock zlib decodes every member and the first
      1 MiB equals the CPU session's) and one QZ_AUTO_SELECT_BEST request
-     (its pick and size);
+     (its pick and size). Then the paths around the session
+     (``session_paths``), each on a dynamic session, launch counts zeroed
+     before and read after each: a QzStream fed in 1 MiB pieces into
+     2,092,032-byte units (equal to its units' compress outputs, stock
+     zlib decodes it, crc_32 checked); 256 requests of 256 KiB through
+     one compress_batch (exactly one CudaEngine.compress_chunks call,
+     counted by wrapping it here; each request equal to its own compress,
+     beside the same requests one at a time); the same requests through
+     AQzSession on two aqz workers (every callback rc 0 with compress's
+     bytes, fewer compress_chunks calls than requests); qz_compress_crc64
+     (the native CRC64 of the input, the Python loop on the first 1 MiB,
+     qz_decompress_crc64 back); and the CLIs as programs with no --device
+     (qzip -k, -d, -A lz4 and back, -O 7z of a three-file tree and back,
+     qzstd and back, aqzip and back; each a new process that reports its
+     launch counts, each round trip the input again);
   5. the first 1 MiB through device="cpu" and device="cuda" on each
      path, both engines held on it: same bytes;
   6. the kernel summary line (ten kernels), the card line, and
@@ -870,6 +884,28 @@ def sublane_breakdown(dev, measure, shared_loops, kernels_so: str) -> dict:
     return got
 
 
+# the session-level paths (stream, batch, async, crc64) and the CLI run
+# on one 64 MiB buffer: 1 MiB stream pieces into the largest staging
+# buffer, 256 requests of 256 KiB for the batch and async paths
+STREAM_PIECE = 1 << 20
+BATCH_REQ = 256 * 1024
+BATCH_N = 256
+# runs a CLI module as ``python -m`` does, then prints its launch counts
+# (a fresh process: they start at 0) as the last line of its stderr
+CLI_LAUNCHER = (
+    "import json, runpy, sys\n"
+    "from qatzip_tpu_torch.ops import cuda_pack\n"
+    "mod = sys.argv[1]\n"
+    "sys.argv = [mod] + sys.argv[2:]\n"
+    "try:\n"
+    "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+    "    rc = 0\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
+    "print('launches ' + json.dumps(cuda_pack.LAUNCHES), file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
 def gunzip_members(blob: bytes):
     """Stock zlib over concatenated gzip members (wbits 31)."""
     out, rest, members = [], blob, 0
@@ -1626,6 +1662,10 @@ def main() -> None:
           f"{pick}; software {len(sw_out)} bytes), {auto_s:.3f} s")
     del out, sw_out, plain
 
+    session_paths(qz, cuda_pack, dispatch, data, launches_by_path,
+                  {"deflate": PATHS[2][4], "lz4": PATHS[4][4],
+                   "lz4s": PATHS[5][4]})
+
     # -- 5. CPU and CUDA agree ---------------------------------------------------
     head = data[:1 << 20]
     for name, kind, level, route, _k in PATHS:
@@ -1658,6 +1698,280 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def session_paths(qz, cuda_pack, dispatch, data: bytes, launches_by_path,
+                  path_kernels) -> None:
+    """The paths around the session, each on a dynamic session on the
+    card, with the launch counts set to 0 just before and read just
+    after: a stream, one batch, async requests on two workers, CRC64, and
+    the three CLIs as programs. ``path_kernels`` names the kernels that
+    a compress of each algorithm ("deflate", "lz4", "lz4s") must launch.
+    Every output is held to the session's own ``compress``."""
+    import tempfile
+    import threading
+
+    import torch
+
+    def dynamic():
+        s = qz.QzSession(device="cuda")
+        check(s.setup_deflate() == qz.QZ_OK, "setup_deflate failed")
+        return s
+
+    kernels = path_kernels["deflate"]
+
+    def counted(name):
+        launches = dict(cuda_pack.LAUNCHES)
+        launches_by_path[name] = launches
+        check(all(launches[k] > 0 for k in kernels),
+              f"{name}: a kernel of the path never launched: {launches}")
+        return launches
+
+    sess = dynamic()
+    whole = sess.compress(data)           # the one-request reference
+
+    # -- path stream-dynamic: 1 MiB pieces into the largest staging buffer
+    unit = qz.constants.QZ_STRM_BUFF_MAX_SZ
+
+    def stream_once():
+        strm = qz.QzStream(sess, strm_buff_sz=unit)
+        out = bytearray()
+        for o in range(0, len(data), STREAM_PIECE):
+            out += strm.compress(data[o:o + STREAM_PIECE])
+        out += strm.compress(b"", last=True)
+        torch.cuda.synchronize()
+        crc = strm.crc_32
+        check(strm.end() == qz.QZ_OK, "stream: end failed")
+        return bytes(out), crc
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_pack.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, crc = stream_once()
+    cold_s = time.perf_counter() - t0
+    launches = counted("stream-dynamic")
+    t0 = time.perf_counter()
+    again, _crc = stream_once()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(again == out, "stream: a second run gave other bytes")
+    full = len(data) // unit
+    units = [data[i * unit:(i + 1) * unit] for i in range(full)]
+    units.append(data[full * unit:])      # the tail ``last`` flushes
+    check(out == b"".join(sess.compress(u) for u in units),
+          "stream: the output is not its units' compress outputs")
+    plain, members = gunzip_members(out)
+    check(plain == data, "stream: zlib does not give back the input")
+    check(crc == zlib.crc32(data), "stream: crc_32 is not the input's")
+    print(f"path stream-dynamic: {len(data)} bytes in {STREAM_PIECE}-byte "
+          f"pieces -> {len(units)} units of {unit} bytes -> {len(out)} "
+          f"bytes ({members} members, stock zlib decodes them; equal to the "
+          f"units' compress outputs; crc_32 checked), ratio "
+          f"{len(data) / len(out):.4f}; cold {cold_s:.3f} s, warm "
+          f"{warm_s:.3f} s = {len(data) / warm_s / 1e9:.4f} GB/s; peak "
+          f"device memory {peak} bytes; launches {launches}")
+
+    # -- path batch-dynamic: 256 requests of 256 KiB in one compress_batch
+    reqs = [data[i * BATCH_REQ:(i + 1) * BATCH_REQ] for i in range(BATCH_N)]
+    calls = []
+    calls_lock = threading.Lock()
+    real_cc = dispatch.CudaEngine.compress_chunks
+
+    def counting(self, chunks, **kw):
+        with calls_lock:
+            calls.append(len(chunks))
+        return real_cc(self, chunks, **kw)
+
+    dispatch.CudaEngine.compress_chunks = counting
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_pack.reset_launch_counts()
+        t0 = time.perf_counter()
+        batch = sess.compress_batch(reqs)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = counted("batch-dynamic")
+        check(len(calls) == 1, f"batch: {len(calls)} compress_chunks calls "
+              "for one batch")
+        nchunks = calls[0]
+        t0 = time.perf_counter()
+        again = sess.compress_batch(reqs)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(again == batch, "batch: a second batch gave other bytes")
+        t0 = time.perf_counter()
+        single = [sess.compress(r, with_crc=True) for r in reqs]
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        check(batch == single, "batch: a request's bytes differ from its "
+              "own compress's")
+        out = b"".join(o for o, _c in batch)
+        check(gunzip_members(out)[0] == data, "batch: zlib does not give "
+              "back the input")
+        print(f"path batch-dynamic: {len(reqs)} requests of {BATCH_REQ} "
+              f"bytes ({nchunks} chunks) in 1 compress_chunks call -> "
+              f"{len(out)} bytes (each request equal to its own compress; "
+              f"stock zlib decodes them), ratio {len(data) / len(out):.4f}; "
+              f"cold {cold_s:.3f} s, warm {batch_s:.3f} s = "
+              f"{len(data) / batch_s / 1e9:.4f} GB/s against one request at "
+              f"a time {single_s:.3f} s = {len(data) / single_s / 1e9:.4f} "
+              f"GB/s ({len(calls) - 2} calls); peak device memory {peak} "
+              f"bytes; launches {launches}")
+
+        # -- path async-dynamic: the same requests through two workers
+        check(qz.aqz_init(2) == qz.QZ_OK, "aqz_init failed")
+        try:
+            asess = qz.AQzSession(device="cuda")
+            check(asess.setup_deflate() == qz.QZ_OK, "setup_deflate failed")
+            results, done = {}, threading.Event()
+            res_lock = threading.Lock()
+
+            def cb(external, src, dest, rc, crc):
+                with res_lock:
+                    results[external] = (rc, dest)
+                    if len(results) == len(reqs):
+                        done.set()
+            calls.clear()
+            retries = 0
+            torch.cuda.reset_peak_memory_stats()
+            cuda_pack.reset_launch_counts()
+            t0 = time.perf_counter()
+            for i, r in enumerate(reqs):
+                while True:
+                    rc = asess.compress(r, cb, external=i)
+                    if rc != qz.AQZ_NO_SPACE:
+                        break
+                    retries += 1
+                    time.sleep(0.0005)
+                check(rc == qz.AQZ_OK, f"async: submit returned {rc}")
+            check(done.wait(600), "async: not every callback came")
+            torch.cuda.synchronize()
+            async_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = counted("async-dynamic")
+        finally:
+            check(qz.aqz_stop() == qz.QZ_OK, "aqz_stop failed")
+    finally:
+        dispatch.CudaEngine.compress_chunks = real_cc
+    check(all(results[i] == (qz.QZ_OK, single[i][0])
+              for i in range(len(reqs))),
+          "async: a callback's rc or bytes differ from compress's")
+    check(len(calls) < len(reqs), f"async: {len(calls)} compress_chunks "
+          f"calls for {len(reqs)} requests: no batch ran")
+    print(f"path async-dynamic: {len(reqs)} requests on 2 workers "
+          f"({retries} AQZ_NO_SPACE retries) in {len(calls)} compress_chunks "
+          f"calls of {sorted(calls)} chunks; every callback rc 0 with its "
+          f"compress bytes; {async_s:.3f} s = "
+          f"{len(data) / async_s / 1e9:.4f} GB/s; peak device memory {peak} "
+          f"bytes; launches {launches}")
+
+    # -- path crc64: qz_compress_crc64 on the whole buffer
+    cuda_pack.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out, crc = qz.qz_compress_crc64(sess, data)
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    launches = counted("crc64")
+    check(rc == qz.QZ_OK and out == whole, "crc64: the compress differs")
+    eng = qz.Crc64()
+    check(eng(b"123456789") == 0x6C40DF5F0B497347, "crc64: check vector")
+    t0 = time.perf_counter()
+    native_crc = eng(data)
+    crc_s = time.perf_counter() - t0
+    check(crc == native_crc, "crc64: not the native Crc64 of the input")
+    head = data[:1 << 20]
+    t0 = time.perf_counter()
+    py = eng.finalize(eng._compute_py(head, eng.config.initial_value))
+    py_s = time.perf_counter() - t0
+    check(py == eng(head), "crc64: the Python loop and the native route "
+          "differ on the first 1 MiB")
+    rc, dec, dcrc = qz.qz_decompress_crc64(sess, out)
+    check(rc == qz.QZ_OK and dec == data and dcrc == crc,
+          "crc64: qz_decompress_crc64 does not give back the input")
+    print(f"path crc64: {len(data)} bytes -> {len(out)}, CRC64 "
+          f"{crc:#018x} (the native route {crc_s * 1e3:.1f} ms = "
+          f"{len(data) / crc_s / 1e9:.3f} GB/s; the Python loop agrees on "
+          f"the first 1 MiB, {py_s:.3f} s); compress {comp_s:.3f} s; "
+          f"qz_decompress_crc64 gives the input back; launches {launches}")
+
+    # -- path cli: the three tools as programs, on the card (no --device)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cli_launches = {k: 0 for k in cuda_pack.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def run(tool, *args, cwd=tmp, algorithm=None):
+            """Run one tool; a compress of ``algorithm`` must launch its
+            path's kernels."""
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", CLI_LAUNCHER,
+                                f"qatzip_tpu_torch.cli.{tool}", *args],
+                               cwd=cwd, env=env, capture_output=True,
+                               text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(r.returncode == 0, f"cli {tool} {' '.join(args)}: exit "
+                  f"{r.returncode}: {r.stderr[-2000:]}")
+            launches = json.loads(r.stderr.splitlines()[-1].split(" ", 1)[1])
+            for k, v in launches.items():
+                cli_launches[k] += v
+            ran = {k: v for k, v in launches.items() if v}
+            if algorithm is not None:
+                check(all(launches[k] > 0 for k in path_kernels[algorithm]),
+                      f"cli {tool} {' '.join(args)}: a kernel of the path "
+                      f"never launched: {launches}")
+            print(f"path cli: {tool} {' '.join(args)}: {wall:.2f} s wall "
+                  f"(a new process on the card), launches {ran}")
+
+        def path(*names):
+            return os.path.join(tmp, *names)
+
+        def read(*names):
+            with open(path(*names), "rb") as f:
+                return f.read()
+
+        def write(blob, *names):
+            os.makedirs(os.path.dirname(path(*names)), exist_ok=True)
+            with open(path(*names), "wb") as f:
+                f.write(blob)
+
+        import gzip
+        write(data, "c.bin")
+        run("qzip", "-k", "c.bin", algorithm="deflate")
+        blob = read("c.bin.gz")
+        check(gzip.decompress(blob) == data and blob == whole,
+              "cli qzip: not gzip of the input, or not the session's bytes")
+        os.remove(path("c.bin"))
+        run("qzip", "-d", "c.bin.gz")
+        check(read("c.bin") == data, "cli qzip -d: not the input")
+        run("qzip", "-A", "lz4", "-k", "c.bin", algorithm="lz4")
+        os.remove(path("c.bin"))
+        run("qzip", "-d", "c.bin.lz4")
+        check(read("c.bin") == data, "cli qzip -A lz4: not the input back")
+        third = len(data) // 3
+        parts = [data[:third], data[third:2 * third], data[2 * third:]]
+        for i, part in enumerate(parts):
+            write(part, "tree", f"part{i}.bin")
+        run("qzip", "-O", "7z", "-o", "t.7z", "tree", algorithm="deflate")
+        os.makedirs(path("out"))
+        run("qzip", "-d", "../t.7z", cwd=path("out"))
+        check([read("out", "tree", f"part{i}.bin") for i in range(3)]
+              == parts, "cli qzip -O 7z: the extracted tree differs")
+        run("qzstd", "-k", "c.bin", algorithm="lz4s")
+        os.remove(path("c.bin"))
+        run("qzstd", "-d", "c.bin.zst")
+        check(read("c.bin") == data, "cli qzstd: not the input back")
+        run("aqzip", "-k", "c.bin", algorithm="deflate")
+        check(gzip.decompress(read("c.bin.gz")) == data,
+              "cli aqzip: not gzip of the input")
+        os.remove(path("c.bin"))
+        run("aqzip", "-d", "c.bin.gz")
+        check(read("c.bin") == data, "cli aqzip -d: not the input back")
+    launches_by_path["cli"] = cli_launches
+    print(f"path cli: every tool round trip gave the input back (the "
+          f"libzstd.so.1 the native library links, version "
+          f"{qz.native.get_lib().zstd_version}); launches {cli_launches}")
 
 
 def host_cost_only() -> None:

@@ -8,6 +8,8 @@ are framed: a member each for the gzip framings, one stream for raw and
 zlib, one LZ4 frame (blocks that did not shrink stored), or the LZ4s
 block stream. With ``QZ_AUTO_SELECT_BEST`` an engine's request is also
 compressed in software, and the smaller output is returned.
+``compress_buffers`` sends many requests' chunks to the engine in one
+call (one per row width) and frames each request on its own.
 
 Decompression: strict gzip-ext members are walked natively and inflated
 in one GIL-free batched call; other gzip and 4-byte members take the
@@ -32,6 +34,7 @@ from .formats.lz4_format import (lz4_frame_footer, lz4_frame_header,
 from .ops.checksum import (adler32, adler32_combine, crc32, crc32_combine,
                            crc32_combine_many)
 from .ops.xxhash import xxh32
+from .parallel.dispatch import row_width
 from .sw import codec as swc
 from .utils.debug import get_counters
 
@@ -127,6 +130,45 @@ def compress_buffer(data: bytes, *, data_fmt: DataFormat, level: int,
         if len(sw_out) < len(out):
             return sw_out, sw_crc
     return out, crc
+
+
+def compress_buffers(datas: List[bytes], *, data_fmt: DataFormat, level: int,
+                     hw_buff_sz: int, engine, algorithm: str = "deflate",
+                     mini_match: int = 3, huffman_static: bool = False
+                     ) -> List[Tuple[bytes, int]]:
+    """Compress many requests with one ``engine.compress_chunks`` call
+    per row width (``dispatch.row_width`` of each request's chunks, which
+    sets the tokenizer's knobs; requests of one size share one call):
+    the requests' chunks are flattened into one dispatch, then each
+    request's results are framed on its own, in order. Returns [(framed
+    output, crc32), ...]; each request's output is what
+    ``compress_buffer`` gives it on the same engine. (The JAX package
+    flattens every width into one call, where a request of 8 KiB or less
+    then gets a wider row, other tokenizer knobs and other bytes than
+    on its own.)"""
+    if algorithm not in ALGORITHMS:
+        raise QzError(QZ_DATA_ERROR, f"unknown algorithm {algorithm}")
+    per_req = [_request_chunks(d, algorithm, data_fmt, hw_buff_sz)
+               for d in datas]
+    groups = {}
+    for i, (chunks, _finals) in enumerate(per_req):
+        groups.setdefault(row_width(chunks), []).append(i)
+    out: List[Tuple[bytes, int]] = [None] * len(datas)
+    for idx in groups.values():
+        flat_chunks = [ch for i in idx for ch in per_req[i][0]]
+        flat_finals = [f for i in idx for f in per_req[i][1]]
+        results = engine.compress_chunks(
+            flat_chunks, level=level, algorithm=algorithm,
+            final_flags=flat_finals, mini_match=mini_match,
+            huffman_static=huffman_static)
+        start = 0
+        for i in idx:
+            chunks = per_req[i][0]
+            out[i] = _frame_results(datas[i], chunks,
+                                    results[start:start + len(chunks)],
+                                    algorithm, data_fmt)
+            start += len(chunks)
+    return out
 
 
 # ---------------------------------------------------------------------------

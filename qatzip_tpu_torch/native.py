@@ -30,6 +30,7 @@ _SHIM = os.path.join(CSRC_DIR, "zstd_shim")
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u16p = ctypes.POINTER(ctypes.c_uint16)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
+_u64p = ctypes.POINTER(ctypes.c_uint64)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 #: the oldest zstd whose parameter values the declarations carry
 ZSTD_MIN_VERSION = 10500
@@ -81,6 +82,11 @@ class NativeLib:
                                   _u16p, _u8p, ctypes.c_int64]
         L.qz_xxh32.restype = ctypes.c_uint32
         L.qz_xxh32.argtypes = [_u8p, ctypes.c_uint64, ctypes.c_uint32]
+        L.qz_crc64_tables.restype = None
+        L.qz_crc64_tables.argtypes = [ctypes.c_uint64, ctypes.c_int32, _u64p]
+        L.qz_crc64.restype = ctypes.c_uint64
+        L.qz_crc64.argtypes = [_u8p, ctypes.c_int64, _u64p, ctypes.c_uint64,
+                               ctypes.c_int32]
         L.qz_lz4_pack.restype = ctypes.c_int64
         L.qz_lz4_pack.argtypes = [_u8p, ctypes.c_int64, _u32p,
                                   ctypes.c_int64, _u8p, ctypes.c_int64]
@@ -149,6 +155,21 @@ class NativeLib:
         """zlib-compatible crc32 (PCLMUL folding in the C++ runtime)."""
         return int(self._lib.qz_crc32(_ptr(_u8(data)), len(data),
                                       crc & 0xFFFFFFFF))
+
+    def crc64_tables(self, poly: int, reflected: bool) -> np.ndarray:
+        """The 8 x 256 slicing tables of CRC64 ``poly`` (reflected or
+        not)."""
+        tbl = np.empty(8 * 256, np.uint64)
+        self._lib.qz_crc64_tables(poly & 0xFFFFFFFFFFFFFFFF,
+                                  1 if reflected else 0, _ptr(tbl, _u64p))
+        return tbl
+
+    def crc64(self, data, tbl: np.ndarray, crc: int, reflected: bool) -> int:
+        """The CRC64 register after ``data``, from ``crc``, with the
+        tables of ``crc64_tables`` (slicing-by-8)."""
+        return int(self._lib.qz_crc64(
+            _ptr(_u8(data)), len(data), _ptr(tbl, _u64p),
+            crc & 0xFFFFFFFFFFFFFFFF, 1 if reflected else 0))
 
     def crc32_combine_many(self, crcs, lens, init: int = 0) -> int:
         c = np.ascontiguousarray(crcs, np.uint32)

@@ -73,6 +73,13 @@ def _pow2_chunk_n(chunks) -> int:
     return max(n, 256)
 
 
+def row_width(chunks) -> int:
+    """The row capacity the engine gives ``chunks``: ``_pow2_chunk_n``,
+    or DEV_MAX where longer chunks are cut into rows. The tokenizer's
+    knobs follow it (``_tok_knobs``)."""
+    return min(_pow2_chunk_n(chunks), DEV_MAX)
+
+
 def _stage_tile(tile, b: int, n: int):
     """Zero-padded (b, n) staging batch + per-row lengths for one tile."""
     data = np.zeros((b, n), np.uint8)

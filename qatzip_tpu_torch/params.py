@@ -4,8 +4,8 @@ Counterpart of ``qatzip_tpu/params.py``: the deflate, LZ4 and LZ4s
 params and the legacy combined params, with the same fields, defaults and
 checks (reference ``qzCheckParams*``, src/qatzip_utils.c:385-520), and
 ``get_defaults`` / ``set_defaults`` (qz{Get,Set}Defaults*,
-src/qatzip.c:3071-3174). No configuration file overlays the defaults:
-the JAX package's ``.conf`` loader is not ported.
+src/qatzip.c:3071-3174). ``get_defaults`` overlays the active section
+of the settings file (``config.py``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -164,8 +164,14 @@ _defaults = {"deflate": SessionParamsDeflate(), "lz4": SessionParamsLZ4(),
 
 def get_defaults(kind: str = "legacy"):
     """qzGetDefaults: a copy of the current defaults of ``kind``
-    ("deflate", "lz4", "lz4s" or "legacy")."""
-    return copy.deepcopy(_defaults[kind])
+    ("deflate", "lz4", "lz4s" or "legacy"), overlaid with the active
+    section of the settings file (``config.py``)."""
+    from .config import apply_to_params, load
+    p = copy.deepcopy(_defaults[kind])
+    settings = load()
+    if settings:
+        apply_to_params(p, settings)
+    return p
 
 
 def set_defaults(params, kind: str = "legacy") -> int:

@@ -9,15 +9,17 @@ runs the kernels' plain versions. An LZ4s session runs its post-process
 callback (for example ``postproc.zstd_callback``) on each compressed
 request.
 
-Two styles, as in the JAX package: ``session.compress(data) -> bytes``
-raising QzError, and module-level wrappers such as ``qz_compress(sess,
-src, dst) -> (rc, consumed, produced)`` that return the reference's
-return codes.
+``compress_batch`` compresses many requests in one engine dispatch (the
+async engine's batching). Two styles, as in the JAX package:
+``session.compress(data) -> bytes`` raising QzError, and module-level
+wrappers such as ``qz_compress(sess, src, dst) -> (rc, consumed,
+produced)`` that return the reference's return codes.
 """
 
 from __future__ import annotations
 
 import copy
+import threading
 import zlib
 from typing import Optional, Tuple
 
@@ -25,8 +27,9 @@ from . import codec as _codec
 from . import params as P
 from .bounds import max_compressed_length as _maxlen
 from .constants import (API_VERSION, DataFormat, Direction, HuffmanHdr,
-                        QZ_BUF_ERROR, QZ_OK, QZ_PARAMS, QZ_POST_PROCESS_ERROR,
-                        QzError, SessionState)
+                        QZ_AUTO_SELECT_BEST, QZ_BUF_ERROR, QZ_OK, QZ_PARAMS,
+                        QZ_POST_PROCESS_ERROR, QzError, SessionState)
+from .engines import host_engine
 from .ops.checksum import crc32_combine
 from .runtime import get_runtime
 
@@ -48,6 +51,9 @@ class QzSession:
         self.total_in = 0
         self.total_out = 0
         self.crc32 = 0
+        # the totals and the running crc, which threads sharing the
+        # session (the async workers) update
+        self._totals_lock = threading.Lock()
         self._legacy_api = False
 
     # -- setup ---------------------------------------------------------------
@@ -154,10 +160,46 @@ class QzSession:
                                        self.mini_match)
             except Exception as e:  # noqa: BLE001 (any callback failure)
                 raise QzError(QZ_POST_PROCESS_ERROR, str(e)) from None
-        self.total_in += len(data)
-        self.total_out += len(out)
-        self.crc32 = crc32_combine(self.crc32, crc, len(data))
+        self._count(len(data), len(out), crc)
         return (out, crc) if with_crc else out
+
+    def compress_batch(self, datas):
+        """Compress many independent requests in ONE engine dispatch
+        (the async engine's batching, src/qatzip.c:3578-3652): the
+        batchable requests' chunks go to one ``compress_chunks`` call per
+        row width (``codec.compress_buffers``) and each request is framed
+        on its own. Returns [(out, crc32), ...] in order; each request's
+        bytes are ``compress``'s.
+
+        Requests under ``input_sz_thrshold`` go to software one at a
+        time, as ``compress`` sends them. With no request at or over it,
+        with ``QZ_AUTO_SELECT_BEST`` (a per-request pick) or an LZ4s
+        callback, every request goes through ``compress``. A legacy
+        level 9 session batches through the host engine."""
+        c = self._ready()
+        if c.direction == Direction.DIR_DECOMPRESS:
+            raise QzError(QZ_PARAMS, "session is decompress-only")
+        datas = [bytes(d) for d in datas]
+        batchable = [i for i, d in enumerate(datas)
+                     if len(d) >= c.input_sz_thrshold]
+        if (not batchable or c.sw_backup == QZ_AUTO_SELECT_BEST
+                or (self.algorithm == "lz4s"
+                    and self.qz_callback is not None)):
+            return [self.compress(d, with_crc=True) for d in datas]
+        engine = (host_engine if self._legacy_api and c.comp_lvl == 9
+                  else self._engine)
+        results = [self.compress(d, with_crc=True)
+                   if len(d) < c.input_sz_thrshold else None for d in datas]
+        batch = _codec.compress_buffers(
+            [datas[i] for i in batchable], algorithm=self.algorithm,
+            data_fmt=self.data_fmt, level=c.comp_lvl,
+            hw_buff_sz=c.hw_buff_sz, engine=engine,
+            mini_match=self.mini_match,
+            huffman_static=self.huffman_hdr == HuffmanHdr.STATIC_HDR)
+        for i, (out, crc) in zip(batchable, batch):
+            results[i] = (out, crc)
+            self._count(len(datas[i]), len(out), crc)
+        return results
 
     def decompress(self, data, max_out: Optional[int] = None,
                    return_consumed: bool = False):
@@ -170,9 +212,17 @@ class QzSession:
         out, consumed, _crc = _codec.decompress_buffer(
             bytes(data), data_fmt=self.data_fmt, algorithm=self.algorithm,
             max_out=max_out)
-        self.total_in += consumed
-        self.total_out += len(out)
+        self._count(consumed, len(out))
         return (out, consumed) if return_consumed else out
+
+    def _count(self, nin: int, nout: int, crc: Optional[int] = None) -> None:
+        """Add a request to the totals (and, for a compress, its crc to
+        the running crc)."""
+        with self._totals_lock:
+            self.total_in += nin
+            self.total_out += nout
+            if crc is not None:
+                self.crc32 = crc32_combine(self.crc32, crc, nin)
 
     def max_compressed_length(self, src_sz: int) -> int:
         """qzMaxCompressedLength for this session's algorithm, framing and
@@ -250,8 +300,7 @@ def qz_compress(sess: QzSession, src, dst: Optional[bytearray] = None,
         consumed += min(hw, len(src_b) - consumed)
     if produced:
         dst[:produced] = out[:produced]
-    sess.total_in -= len(src_b) - consumed
-    sess.total_out -= len(out) - produced
+    sess._count(consumed - len(src_b), produced - len(out))
     return QZ_BUF_ERROR, consumed, produced
 
 

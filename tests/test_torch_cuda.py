@@ -908,3 +908,99 @@ def test_refused_launch_raises_and_is_not_counted(card, monkeypatch):
     got = cuda_pack.symbol_histogram(sym, sym)
     assert torch.equal(got.cpu(), cuda_pack.symbol_histogram_ref(
         sym.cpu(), sym.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# streams, batches, async requests and threads on the card
+# ---------------------------------------------------------------------------
+
+def _slice_requests():
+    from corpus import make_corpus
+    c = make_corpus()
+    return ([c["text"][i * 40000:(i + 1) * 40000] for i in range(6)]
+            + [c["json"][:5000], c["runs"][:700], c["binary"][:70000], b""])
+
+
+def _device_pack_session(device, hw=16384):
+    import qatzip_tpu_torch as qz
+    sess = qz.QzSession(device=device)
+    p = qz.SessionParamsDeflate()
+    p.common.hw_buff_sz = hw
+    assert sess.setup_deflate(p) == qz.QZ_OK
+    return sess
+
+
+@pytest.fixture()
+def device_pack(monkeypatch):
+    """Both engines held on the device pack (the card's own route for a
+    dynamic session; the CPU's is the token path)."""
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
+    monkeypatch.setattr(CudaEngine, "packs_on_device",
+                        lambda self, s, algorithm="deflate": True)
+
+
+def test_stream_batch_and_async_on_card_match_cpu(card, device_pack):
+    """A stream, a batch and async requests give the card the CPU's bytes
+    on the same route, and each request its ``compress`` output."""
+    import threading
+    import time
+    import qatzip_tpu_torch as qz
+    reqs = _slice_requests()
+    data = b"".join(reqs)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        sess = _device_pack_session(device)
+        strm = qz.QzStream(sess, strm_buff_sz=3 * 16384)
+        blob = b"".join(strm.compress(data[o:o + 10000])
+                        for o in range(0, len(data), 10000))
+        blob += strm.compress(b"", last=True)
+        assert strm.crc_32 == zlib.crc32(data)
+        batch = sess.compress_batch(reqs)
+        assert batch == [sess.compress(r, with_crc=True) for r in reqs]
+        assert qz.aqz_init(num_threads=2) == qz.QZ_OK
+        try:
+            got, done = {}, threading.Event()
+
+            def cb(external, src, dest, rc, crc):
+                got[external] = (rc, dest)
+                if len(got) == len(reqs):
+                    done.set()
+            asess = qz.AQzSession(session=sess)
+            for i, r in enumerate(reqs):
+                while asess.compress(r, cb, external=i) == qz.AQZ_NO_SPACE:
+                    time.sleep(0.001)
+            assert done.wait(120)
+        finally:
+            qz.aqz_stop()
+        assert [got[i] for i in range(len(reqs))] == [(qz.QZ_OK, o)
+                                                      for o, _c in batch]
+        outs[device] = (blob, batch)
+    assert outs["cpu"] == outs["cuda"]
+    import gzip
+    assert gzip.decompress(outs["cuda"][0]) == data
+
+
+def test_two_threads_share_one_card_session(card):
+    """Two threads compressing through one CUDA session (one engine) at
+    once give each request its single-thread bytes."""
+    import threading
+    reqs = _slice_requests()[:6] * 3
+    sess = _device_pack_session("cuda", hw=65536)
+    want = [sess.compress(r) for r in reqs]
+    got = [None] * len(reqs)
+    errors = []
+
+    def work(idx):
+        try:
+            for i in idx:
+                got[i] = sess.compress(reqs[i])
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+    threads = [threading.Thread(target=work, args=(range(k, len(reqs), 2),))
+               for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert got == want
