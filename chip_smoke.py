@@ -43,7 +43,12 @@ exits non-zero without the final line:
      shifts 0 and 127, sort keys from 8 values with bit 31 set, all-equal,
      sorted and reverse-sorted rows, 1, 3, 5 and 4097 rows of tied keys),
      each also against one PyTorch call (torch.gather, seven torch.roll
-     summed, torch.sort with its payload gathered); then the host cost of
+     summed, torch.sort with its payload gathered); the device LZ4
+     decode's chain resolution on the reference planes of the first tile
+     of the LZ4 session's frame and on adversarial planes, and the device
+     CRC32 on the first tile, on zero and 0xFF rows and at n = 2048, each
+     beside the JAX route in torch and the host leg
+     (``decode_crc_kernels``); then the host cost of
      one call of every wrapper at its path's shape beside its library
      call (``host_cost_table``: a host clock over 1,000 calls, no sync
      within a batch of 100), and one sublane gather call at (512, 128)
@@ -84,10 +89,14 @@ exits non-zero without the final line:
      qz_decompress_crc64 back); and the CLIs as programs with no --device
      (qzip -k, -d, -A lz4 and back, -O 7z of a three-file tree and back,
      qzstd and back, aqzip and back; each a new process that reports its
-     launch counts, each round trip the input again);
+     launch counts, each round trip the input again). Before those: the
+     LZ4 frame decoded on the host leg and on the device leg (each held),
+     the token path and the main path with the device CRC held, and one
+     compress under ``qz_trace`` (``decode_crc_paths``);
   5. the first 1 MiB through device="cpu" and device="cuda" on each
-     path, both engines held on it: same bytes;
-  6. the kernel summary line (ten kernels), the card line, and
+     path, both engines held on it: same bytes; and its LZ4 frame decoded
+     on both with the device leg held;
+  6. the kernel summary line (twelve kernels), the card line, and
      {"ok": true, ...}.
 
 It imports neither jax nor the JAX package.
@@ -112,26 +121,33 @@ OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside the tensor cores
 #  pack; the kernels it runs). Kinds: "dynamic" and "static" deflate,
 #  "lz4", and "lz4s-zstd" (an LZ4s session with the zstd callback).
 PATHS = [
-    ("token", "dynamic", 1, False, ("candidate_search", "parse_scan")),
+    ("token", "dynamic", 1, False,
+     ("candidate_search", "parse_scan", "crc32_rows")),
     ("static-device-pack", "static", 1, None,
-     ("candidate_search", "parse_scan", "pack_rows")),
+     ("candidate_search", "parse_scan", "pack_rows", "crc32_rows")),
     ("dynamic-device-pack", "dynamic", 1, None,
      ("candidate_search", "parse_scan", "symbol_histogram",
-      "huffman_lookup", "pack_rows")),
-    ("lz4-token", "lz4", 1, False, ("candidate_search", "parse_scan")),
-    ("lz4-device-pack", "lz4", 1, True, ("parse_scan", "lz4_pack_rows")),
-    ("lz4s-zstd", "lz4s-zstd", 1, None, ("candidate_search", "parse_scan")),
+      "huffman_lookup", "pack_rows", "crc32_rows")),
+    ("lz4-token", "lz4", 1, False,
+     ("candidate_search", "parse_scan", "crc32_rows")),
+    ("lz4-device-pack", "lz4", 1, True,
+     ("parse_scan", "lz4_pack_rows", "crc32_rows")),
+    ("lz4s-zstd", "lz4s-zstd", 1, None,
+     ("candidate_search", "parse_scan", "crc32_rows")),
     ("level6-dynamic-device-pack", "dynamic", 6, None,
-     ("parse_scan", "symbol_histogram", "huffman_lookup", "pack_rows")),
+     ("parse_scan", "symbol_histogram", "huffman_lookup", "pack_rows",
+      "crc32_rows")),
 ]
 # the path whose launches the kernel summary reports: the default
-# (dynamic) session on the card, which runs five kernels; the LZ4 byte
-# packer's launches come from the LZ4 device pack's path
+# (dynamic) session on the card, which runs six kernels (the device CRC
+# is the card's own route); the LZ4 byte packer's launches come from the
+# LZ4 device pack's path, the chain resolution's from the device decode
 MAIN_PATH = "dynamic-device-pack"
 # the probe kernels run on no codec path: their home is the devprims path,
 # the probe tool's run
 DEVPRIMS_KERNELS = ("lane_gather", "sublane_gather", "roll_sum", "bitonic128")
 HOME_PATH = {"lz4_pack_rows": "lz4-device-pack",
+             "lz4_resolve_refs": "lz4-device-decode",
              **{k: "devprims" for k in DEVPRIMS_KERNELS}}
 # the row split's chunk size (four 64 KiB rows a chunk)
 SPLIT_HW = 262144
@@ -183,11 +199,12 @@ def device_cost(fn):
     return ops, peak
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, symbol: str = "") -> float:
     """Mean device time of one run of ``fn`` over ``reps`` runs: the CUDA
     activity the profiler records, without the gaps between launches
     (which ``event_ms`` counts, and which set the time of a kernel whose
-    work is shorter than its launch)."""
+    work is shorter than its launch); with ``symbol``, only the kernels
+    whose name holds it (a kernel's own time where ``fn`` also copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -196,9 +213,12 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / reps / 1e3
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and symbol in e.key)
+    check(us > 0 or not symbol, f"the profiler saw no kernel named "
+          f"*{symbol}*")
+    return us / reps / 1e3
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -542,6 +562,227 @@ def probe_kernels(dev, b: int, record, adversarial, res) -> None:
               None if label else "tools/devprims.py:222")
 
 
+# a part of each kernel's function name as the profiler and a trace name
+# it (the __global__ functions of csrc/*.cu)
+KERNEL_SYMBOLS = {"candidate_search": "candsearch_kernel",
+                  "parse_scan": "parse_scan_kernel",
+                  "symbol_histogram": "hist_kernel",
+                  "huffman_lookup": "lookup_kernel",
+                  "pack_rows": "pack_rows_kernel",
+                  "lz4_resolve_refs": "resolve_kernel",
+                  "crc32_rows": "crc_kernel"}
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Best host-clock time of ``fn`` in ms over ``reps`` runs."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def decode_crc_kernels(dev, data: bytes, n: int, record, adversarial,
+                       res) -> None:
+    """The kernels of the device LZ4 decode and the device CRC32 against
+    their plain versions on the card.
+
+    ``lz4_resolve_refs``: the reference planes of the first tile of the
+    LZ4 session's frame (its coded 64 KiB blocks, parsed by the host as
+    the decode leg parses them) at the decode's 17 rounds, bytes and flag
+    bit-identical to the plain version (the JAX route in torch: one
+    ``torch.gather`` a round) and equal to the input; its own device time
+    (profiler; each run first copies the plane, since the kernel jumps it
+    in place) beside the plane's copy, the host parse, the plane's h2d
+    and the host leg (the batched native decode of the same blocks).
+    Then adversarial planes: b"A" * n rows (chains of depth n - 1), rows
+    of literals only, B = 1 and 3, one 300,001-byte block at n = 524288
+    (20 rounds), and 3 rounds (too few: the kernel must agree wherever
+    the plain version resolved).
+
+    ``crc32_rows``: the first 16 MB tile against the plain version (the
+    JAX formulation: bits @ V in float32), zlib.crc32 of each row, beside
+    one ``torch.matmul`` of the bits plane (the library call) and the
+    host crc32 of the same rows on the host pool; then zero and 0xFF rows
+    and n = 2048."""
+    import numpy as np
+    import torch
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch import native
+    from qatzip_tpu_torch.engines import host_pool
+    from qatzip_tpu_torch.formats.lz4_format import (parse_lz4_frame_header,
+                                                     walk_lz4_blocks)
+    from qatzip_tpu_torch.ops import crc32_mxu as cm
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from qatzip_tpu_torch.parallel.dispatch import TILE_B
+    lib = native.get_lib()
+
+    # -- lz4_resolve_refs on the first tile of the LZ4 frame
+    head = data[:TILE_B * n]
+    sess = qz.QzSession(device="cuda")
+    check(sess.setup_lz4() == qz.QZ_OK, "setup_lz4 failed")
+    frame = sess.compress(head)
+    info = parse_lz4_frame_header(frame, 0)
+    blocks = walk_lz4_blocks(frame, 0, len(frame), info.header_sz)[0]
+    coded = [i for i, (_o, _s, stored) in enumerate(blocks) if not stored]
+    b = len(coded)
+    rounds = (n - 1).bit_length() + 1
+    refs = np.full((b, n), -1, np.int32)
+    mv = memoryview(frame)
+    payloads = [bytes(mv[blocks[i][0]:blocks[i][0] + blocks[i][1]])
+                for i in coded]
+
+    def parse_all():
+        return list(host_pool().map(
+            lambda k: lib.lz4_ref_block(payloads[k], refs[k], n), range(b)))
+    check(parse_all() == [n] * b, "the host parse of the tile's blocks "
+          "failed")
+    parse_ms = host_ms(parse_all)
+    pinned = torch.from_numpy(refs).pin_memory()
+    plane = pinned.to(dev)
+    h2d_ms = event_ms(lambda: pinned.to(dev, non_blocking=True), 5)
+    work = torch.empty_like(plane)
+
+    def kernel(src=plane, r=rounds, work=work):
+        work.copy_(src)
+        return ld.resolve_refs(work, r)
+    got, flag = kernel()
+    want, want_flag = ld.resolve_refs_ref(plane.clone(), rounds)
+    err = max_err(got, want)
+    check(not bool(flag) and not bool(want_flag), "lz4_resolve_refs: the "
+          "tile's chains did not resolve")
+    host_rows = got.cpu().numpy()
+    check(all(host_rows[k].tobytes() == head[i * n:(i + 1) * n]
+              for k, i in enumerate(coded)),
+          "lz4_resolve_refs: the tile's bytes differ from the input")
+    ms = device_ms(kernel, 20, KERNEL_SYMBOLS["lz4_resolve_refs"])
+    copy_ms = event_ms(lambda: work.copy_(plane), 20)
+    with_copy_ms = event_ms(kernel, 20)
+    plain_ms = event_ms(lambda: ld.resolve_refs_ref(plane.clone(), rounds),
+                        2)
+    offs = [blocks[i][0] for i in coded]
+    sizes = [blocks[i][1] for i in coded]
+    decode_ms = host_ms(lambda: lib.lz4_batch_bytes(frame, offs, sizes,
+                                                    [n] * b))
+    record("lz4_resolve_refs", "lz4_resolve.cu",
+           "qatzip_tpu/ops/lz4_decode.py:35", err, ms, plain_ms, None,
+           # the plane read once, the bytes and flags written once; one
+           # step a position
+           b * n * 5 + b * 4, b * n, (b, n))
+    res["lz4_resolve_refs"].update(
+        ms_with_plane_copy=with_copy_ms, plane_copy_ms=copy_ms,
+        jax_route_in_torch_ms=plain_ms, host_parse_ms=parse_ms,
+        plane_h2d_ms=h2d_ms, host_decode_ms=decode_ms, rows=b,
+        stored_rows=len(blocks) - b)
+    print(f"kernel lz4_resolve_refs ({b}, {n}), {rounds} rounds: device time "
+          f"(profiler) {ms:.4f} ms, with the plane's copy {with_copy_ms:.4f} "
+          f"ms (copy {copy_ms:.4f}); the JAX route in torch (the plain "
+          f"version, a torch.gather a round) {plain_ms:.4f} ms; host legs: "
+          f"parse into the plane {parse_ms:.3f} ms on the host pool, the "
+          f"plane's h2d {h2d_ms:.4f} ms, the batched native decode of the "
+          f"same {b} blocks {decode_ms:.3f} ms")
+
+    def resolve_case(label, src, r, resolves=True):
+        """The kernel against the plain version on ``src``: bit-identical
+        bytes and flag where the plain version resolves; with too few
+        rounds, the same literal at every position it resolved."""
+        left = torch.empty_like(src)
+        got, flag = kernel(src, r, left)
+        plain_plane = src.clone()
+        want, want_flag = ld.resolve_refs_ref(plain_plane, r)
+        check(bool(want_flag) != resolves, f"lz4_resolve_refs ({label}): "
+              f"the plain version's flag is {bool(want_flag)}")
+        if resolves:
+            check(not bool(flag), f"lz4_resolve_refs ({label}): unresolved")
+            err = max_err(got, want)
+        else:
+            done = plain_plane < 0
+            err = max_err(left[done], plain_plane[done])
+        ms = device_ms(lambda: kernel(src, r, left), 5,
+                              KERNEL_SYMBOLS["lz4_resolve_refs"])
+        plain_ms = event_ms(lambda: ld.resolve_refs_ref(src.clone(), r), 1)
+        adversarial("lz4_resolve_refs", label, tuple(src.shape), err, ms,
+                    plain_ms)
+        res["lz4_resolve_refs"]["adversarial"][-1].update(
+            rounds=r, unresolved=bool(flag), plain_unresolved=bool(want_flag))
+        if not resolves:
+            print(f"kernel lz4_resolve_refs {label}: the plain version "
+                  f"unresolved, the kernel "
+                  f"{'unresolved' if bool(flag) else 'resolved'}")
+
+    a_row = np.full(n, -1, np.int32)
+    check(lib.lz4_ref_block(lib.lz4_compress_block(b"A" * n), a_row, n) == n,
+          "the host parse of b'A' * n failed")
+    resolve_case("A * n (chains of depth n - 1)",
+                 torch.from_numpy(np.ascontiguousarray(
+                     np.broadcast_to(a_row, (TILE_B, n)))).to(dev), rounds)
+    rng = np.random.default_rng(11)
+    resolve_case("all literals", torch.from_numpy(
+        -1 - rng.integers(0, 256, (TILE_B, n), dtype=np.int32)).to(dev),
+        rounds)
+    resolve_case("the tile's first row, B = 1", plane[:1].clone(), rounds)
+    resolve_case("the tile's first rows, B = 3", plane[:3].clone(), rounds)
+    resolve_case("3 rounds (too few)", plane, 3, resolves=False)
+    wide = 524288
+    deep = np.full((1, wide), -1, np.int32)
+    check(lib.lz4_ref_block(lib.lz4_compress_block(b"Z" * 300001), deep[0],
+                            wide) == 300001, "the host parse of a "
+          "300,001-byte block failed")
+    resolve_case("one 300,001-byte block at n = 524288",
+                 torch.from_numpy(deep).to(dev), (wide - 1).bit_length() + 1)
+    del work, plane, pinned, got, want
+    torch.cuda.empty_cache()
+
+    # -- crc32_rows on the first 16 MB tile
+    tile = torch.frombuffer(bytearray(head), dtype=torch.uint8)
+    tile = tile.reshape(TILE_B, n).to(dev)
+    got = cm.crc32_batch_device(tile, n=n)
+    err = max_err(got, cm.crc32_batch_ref(tile, n=n))
+    rows = [memoryview(head)[i * n:(i + 1) * n] for i in range(TILE_B)]
+    check(got.tolist() == [zlib.crc32(r) for r in rows],
+          "crc32_rows differs from zlib.crc32")
+    ms = event_ms(lambda: cm.crc32_batch_device(tile, n=n), 50)
+    dev_ms = device_ms(lambda: cm.crc32_batch_device(tile, n=n), 20,
+                              KERNEL_SYMBOLS["crc32_rows"])
+    plain_ms = event_ms(lambda: cm.crc32_batch_ref(tile, n=n), 3)
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    bits = ((tile[:, :, None] >> shifts) & 1).reshape(TILE_B, 8 * n).float()
+    v = cm._v_on(n, dev)
+    library_ms = event_ms(lambda: torch.matmul(bits, v), 5)
+    del bits
+    host_crc_ms = host_ms(lambda: list(host_pool().map(lib.crc32, rows)))
+    serial_crc_ms = host_ms(lambda: [lib.crc32(r) for r in rows])
+    record("crc32_rows", "crc32_rows.cu", "qatzip_tpu/ops/crc32_mxu.py:95",
+           err, ms, plain_ms, library_ms,
+           # the tile read once, the crcs written once; a table step and an
+           # xor a byte at the least
+           TILE_B * n + TILE_B * 4, TILE_B * n * 2, (TILE_B, n))
+    res["crc32_rows"].update(device_ms=dev_ms, host_crc_ms=host_crc_ms,
+                             host_crc_one_thread_ms=serial_crc_ms,
+                             jax_route_in_torch_ms=library_ms)
+    print(f"kernel crc32_rows ({TILE_B}, {n}): equal to zlib.crc32; device "
+          f"time (profiler) {dev_ms:.4f} ms; the JAX route's matmul alone "
+          f"(bits @ V, float32) {library_ms:.4f} ms; the host crc32 of the "
+          f"same rows on the host pool {host_crc_ms:.3f} ms, on one thread "
+          f"{serial_crc_ms:.3f} ms")
+    for label, rows_t, width in (
+            ("zero rows", torch.zeros_like(tile), n),
+            ("0xFF rows", torch.full_like(tile, 0xFF), n),
+            ("n = 2048", tile.reshape(-1, 2048), 2048)):
+        got = cm.crc32_batch_device(rows_t, n=width)
+        err = max_err(got, cm.crc32_batch_ref(rows_t, n=width))
+        host = rows_t[:4].cpu().numpy()
+        check(got[:4].tolist() == [zlib.crc32(r.tobytes()) for r in host],
+              f"crc32_rows ({label}) differs from zlib.crc32")
+        adversarial("crc32_rows", label, tuple(rows_t.shape), err,
+                    event_ms(lambda: cm.crc32_batch_device(rows_t, n=width),
+                             20),
+                    event_ms(lambda: cm.crc32_batch_ref(rows_t, n=width), 2))
+    del tile, rows_t
+    torch.cuda.empty_cache()
+
+
 # chip_smoke's own measurement extension, never part of the library: the
 # binding's argument path (binding.c, included) with no launch behind it,
 # the same as a bare C function for ctypes, and N sublane-gather launches
@@ -754,6 +995,17 @@ def host_cost_table(dev) -> dict:
         "bitonic128": (lambda: dv.bitonic128(x65, x65), sort_gather,
                        (65536, 128)),
     }
+    if importlib.util.find_spec("qatzip_tpu_torch.ops.lz4_decode"):
+        # the device decode and CRC (a tree before them has neither)
+        from qatzip_tpu_torch.ops import crc32_mxu as cm
+        from qatzip_tpu_torch.ops import lz4_decode as ld
+        lits = z(b, n) - 1                  # literals: one pass a call
+        bits = z(b, 8 * n, dtype=torch.float32)
+        v = z(8 * n, 32, dtype=torch.float32)
+        cases["lz4_resolve_refs"] = (lambda: ld.resolve_refs(lits, 17), None,
+                                     (b, n))
+        cases["crc32_rows"] = (lambda: cm.crc32_batch_device(u8, n=n),
+                               lambda: torch.matmul(bits, v), (b, n))
     out = {}
     for name, (kern, lib, shape) in cases.items():
         if name == "symbol_histogram":
@@ -1349,6 +1601,8 @@ def main() -> None:
 
     probe_kernels(dev, 128, record, adversarial, res)
     torch.cuda.empty_cache()
+    del tile
+    decode_crc_kernels(dev, data, n, record, adversarial, res)
 
     # the host cost of one call of every wrapper, then the sublane
     # gather's part by part
@@ -1403,6 +1657,7 @@ def main() -> None:
     launches_by_path = {}
     warm_by_path = {}
     ratio_by_path = {}
+    outs_by_path = {}
 
     def session(kind, level, device):
         """A session of the path's kind on ``device``."""
@@ -1476,6 +1731,7 @@ def main() -> None:
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         check(out2 == out, f"{name}: a second compress gave other bytes")
+        outs_by_path[name] = out
         peak = torch.cuda.max_memory_allocated()
         warm_by_path[name] = len(data) / warm_s / 1e9
         ratio_by_path[name] = len(data) / len(out)
@@ -1590,6 +1846,9 @@ def main() -> None:
           f"{ratio_by_path['lz4-token']:.4f} vs device pack "
           f"{ratio_by_path['lz4-device-pack']:.4f}; the engine on the card "
           f"takes the {'device pack' if pick else 'token path'}")
+    decode_crc_paths(qz, cuda_pack, dispatch, data, outs_by_path,
+                     warm_by_path, launches_by_path, set_route)
+    del outs_by_path
 
     # the devprims path: the probe tool's main at its defaults (B = 128),
     # which runs the four probe kernels beside their library calls
@@ -1685,6 +1944,21 @@ def main() -> None:
         print(f"cpu-vs-cuda {name}: first 1 MiB identical ({len(outs[0])} "
               f"bytes; plain versions on the host took {cpu_s:.3f} s)")
     set_route(None)
+    # the first 1 MiB's LZ4 frame decoded with the device leg held on both
+    frame = session("lz4", 1, "cuda").compress(head)
+    own_decode = dispatch.CudaEngine.decodes_on_device
+    dispatch.CudaEngine.decodes_on_device = lambda self: True
+    try:
+        cuda_pack.reset_launch_counts()
+        outs = [session("lz4", 1, device).decompress(frame)
+                for device in ("cpu", "cuda")]
+    finally:
+        dispatch.CudaEngine.decodes_on_device = own_decode
+    check(outs[0] == outs[1] == head and cuda_pack.LAUNCHES[
+        "lz4_resolve_refs"] > 0, "lz4 device decode: device='cpu' and "
+          "device='cuda' give other bytes for the first 1 MiB")
+    print(f"cpu-vs-cuda lz4-device-decode: the first 1 MiB's frame "
+          f"({len(frame)} bytes) decodes to the same bytes on both")
 
     # -- 6. summary -----------------------------------------------------------------
     for name, entry in res.items():
@@ -1698,6 +1972,212 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def decode_crc_paths(qz, cuda_pack, dispatch, data: bytes, outs_by_path,
+                     warm_by_path, launches_by_path, set_route) -> None:
+    """The device LZ4 decode, the device CRC32 and a trace on the card,
+    launch counts zeroed before and read after each path:
+
+      * ``lz4-host-decode`` and ``lz4-device-decode``: the LZ4 session's
+        64 MiB frame (the ``lz4-device-pack`` path's output) decoded by a
+        session held on each leg, cold and warm, equal to the input; the
+        device leg's profile and its host parse apart; the engine's pick;
+      * ``token-device-crc``: the token path held, with the device CRC
+        held: the bytes of the held token path (so every member's crc32,
+        which stock zlib checks, and the session's crc are zlib's);
+        beside it the main path with the device CRC held, equal to the
+        main path's bytes; the engine's pick;
+      * one compress of the main path under ``qz_trace`` (and ``stage``)
+        into a temporary directory: the trace file names at least one of
+        the path's kernels."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from qatzip_tpu_torch import native
+    from qatzip_tpu_torch.engines import host_pool
+    from qatzip_tpu_torch.formats.lz4_format import (parse_lz4_frame_header,
+                                                     walk_lz4_blocks)
+    from qatzip_tpu_torch.utils.debug import get_counters
+    from qatzip_tpu_torch.utils.trace import qz_trace, stage
+    eng_cls = dispatch.CudaEngine
+    own_decode, own_crc = eng_cls.decodes_on_device, eng_cls.crc_on_device
+    dev = torch.device("cuda", 0)
+
+    # -- the LZ4 decode legs
+    frame = outs_by_path["lz4-device-pack"]
+    info = parse_lz4_frame_header(frame, 0)
+    blocks = walk_lz4_blocks(frame, 0, len(frame), info.header_sz)[0]
+    stored = sum(st for _o, _s, st in blocks)
+    sess = qz.QzSession(device="cuda")
+    check(sess.setup_lz4() == qz.QZ_OK, "setup_lz4 failed")
+    warm = {}
+    try:
+        for name, held in (("lz4-host-decode", False),
+                           ("lz4-device-decode", True)):
+            eng_cls.decodes_on_device = lambda self, held=held: held
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_pack.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = sess.decompress(frame)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            launches = dict(cuda_pack.LAUNCHES)
+            launches_by_path[name] = launches
+            check(out == data, f"{name}: the decode differs from the input")
+            check((launches["lz4_resolve_refs"] > 0) == held,
+                  f"{name}: lz4_resolve_refs launches {launches}")
+            t0 = time.perf_counter()
+            out = sess.decompress(frame)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            check(out == data, f"{name}: a second decode differs")
+            peak = torch.cuda.max_memory_allocated()
+            warm[name] = len(data) / warm_s / 1e9
+            print(f"path {name}: {len(frame)} bytes ({len(blocks)} blocks, "
+                  f"{stored} stored) -> {len(data)}, equal to the input; "
+                  f"decompress cold {cold_s:.3f} s, warm {warm_s:.3f} s = "
+                  f"{warm[name]:.4f} GB/s; peak device memory {peak} bytes "
+                  f"({peak - base} above what the script held); launches "
+                  f"{launches}")
+            if held:
+                lib = native.get_lib()
+                mv = memoryview(frame)
+                payloads = [bytes(mv[o:o + sz]) for o, sz, st in blocks
+                            if not st]
+                refs = np.empty((len(payloads), 65536), np.int32)
+                parse_ms = host_ms(lambda: list(host_pool().map(
+                    lambda k: lib.lz4_ref_block(payloads[k], refs[k], 65536),
+                    range(len(payloads)))))
+                del refs
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    sess.decompress(frame)
+                    torch.cuda.synchronize()
+                    prof_s = time.perf_counter() - t0
+                evs = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+                dev_us = sum(e.self_device_time_total for e in evs)
+                print(f"breakdown {name}: the host parse of the "
+                      f"{len(payloads)} coded blocks into reference planes "
+                      f"{parse_ms:.3f} ms on the host pool ({len(payloads) * 4 * 65536} "
+                      f"bytes of plane); one decode under the profiler "
+                      f"{prof_s:.3f} s, device busy {dev_us / 1e3:.2f} ms")
+                for e in sorted(evs, key=lambda e: -e.self_device_time_total
+                                )[:5]:
+                    print(f"profile {name}:   "
+                          f"{e.self_device_time_total / 1e3:9.3f} ms x"
+                          f"{e.count:<5d} {e.key[:80]}")
+    finally:
+        eng_cls.decodes_on_device = own_decode
+    pick = eng_cls(dev).decodes_on_device()
+    print(f"route lz4 decode: warm GB/s host leg "
+          f"{warm['lz4-host-decode']:.4f} vs device leg "
+          f"{warm['lz4-device-decode']:.4f}; the engine on the card takes "
+          f"the {'device' if pick else 'host'} leg")
+
+    # -- the device CRC32 on the token path, then on the main path; then
+    # both routes with the host crc and the device crc in turns (host,
+    # device, device, host, twice), warm, on one session each
+    crc_warm = {}
+    try:
+        eng_cls.crc_on_device = lambda self: True
+        for name, route, base_path in (
+                ("token-device-crc", False, "token"),
+                ("dynamic-device-pack-device-crc", None,
+                 "dynamic-device-pack")):
+            set_route(route)
+            sess = qz.QzSession(device="cuda")
+            check(sess.setup_deflate() == qz.QZ_OK, "setup_deflate failed")
+            cuda_pack.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = sess.compress(data)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            launches = dict(cuda_pack.LAUNCHES)
+            launches_by_path[name] = launches
+            check(launches["crc32_rows"] > 0 and launches["parse_scan"] > 0,
+                  f"{name}: a kernel of the path never launched: {launches}")
+            check(out == outs_by_path[base_path], f"{name}: the bytes differ "
+                  f"from the {base_path} path's")
+            check(sess.crc32 == zlib.crc32(data), f"{name}: the session's "
+                  "crc32 differs from zlib's")
+            plain, members = gunzip_members(out)
+            check(plain == data, f"{name}: stock zlib does not give back "
+                  "the input")
+            turns = {False: [], True: []}
+            for held in (False, True, True, False) * 2:
+                eng_cls.crc_on_device = lambda self, held=held: held
+                t0 = time.perf_counter()
+                again = sess.compress(data)
+                torch.cuda.synchronize()
+                turns[held].append(time.perf_counter() - t0)
+                check(again == out, f"{name}: a warm compress differs")
+            eng_cls.crc_on_device = lambda self: True
+            med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+            crc_warm[name] = {k: len(data) / v / 1e9 for k, v in med.items()}
+            print(f"path {name}: {len(data)} bytes -> {len(out)}, the "
+                  f"{base_path} path's bytes ({members} members, each crc32 "
+                  f"checked by stock zlib; the session's crc zlib's); "
+                  f"compress cold {cold_s:.3f} s; warm in turns (host, "
+                  f"device, device, host, twice), s: host crc "
+                  f"{[round(t, 4) for t in turns[False]]}, device crc "
+                  f"{[round(t, 4) for t in turns[True]]}; medians "
+                  f"{crc_warm[name][False]:.4f} vs {crc_warm[name][True]:.4f}"
+                  f" GB/s; launches {launches}")
+    finally:
+        eng_cls.crc_on_device = own_crc
+        set_route(None)
+    pick = eng_cls(dev).crc_on_device()
+    tok, main = crc_warm["token-device-crc"], crc_warm[
+        "dynamic-device-pack-device-crc"]
+    print(f"route crc: warm GB/s (medians in turns) token path host crc "
+          f"{tok[False]:.4f} vs device crc {tok[True]:.4f}, dynamic device "
+          f"pack {main[False]:.4f} vs {main[True]:.4f}; the engine on the "
+          f"card takes the {'device' if pick else 'host'} crc")
+
+    # -- one compress of the main path under qz_trace
+    sess = qz.QzSession(device="cuda")
+    check(sess.setup_deflate() == qz.QZ_OK, "setup_deflate failed")
+    trace_dir = tempfile.mkdtemp(prefix="qz_trace_")
+    try:
+        before = get_counters().snapshot()
+        t0 = time.perf_counter()
+        with qz_trace(trace_dir):
+            with stage("chip_smoke_compress"):
+                out = sess.compress(data)
+                torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        check(out == outs_by_path["dynamic-device-pack"], "trace: the "
+              "traced compress gave other bytes")
+        files = os.listdir(trace_dir)
+        check(len(files) == 1, f"trace: {files} in the trace directory")
+        with open(os.path.join(trace_dir, files[0])) as f:
+            text = f.read()
+        named = [k for k in PATHS[2][4] if KERNEL_SYMBOLS[k] in text]
+        check(named, "trace: the trace names none of the main path's kernels")
+        check('"chip_smoke_compress"' in text, "trace: no stage range")
+        tid = threading.get_ident()
+        mine = get_counters().snapshot().get(tid, {})
+        was = before.get(tid, {})
+        counts = {k: mine.get(k, 0) - was.get(k, 0)
+                  for k in ("stage_chip_smoke_compress",
+                            "stage_chip_smoke_compress_us")}
+        check(counts["stage_chip_smoke_compress"] == 1, f"trace: stage "
+              f"counters {counts}")
+        print(f"trace: one compress of the main path under qz_trace and "
+              f"stage {trace_s:.3f} s (warm untraced "
+              f"{len(data) / warm_by_path['dynamic-device-pack'] / 1e9:.3f} "
+              f"s), a {len(text)}-byte Chrome trace naming {named}; "
+              f"counters {counts}")
+    finally:
+        shutil.rmtree(trace_dir)
 
 
 def session_paths(qz, cuda_pack, dispatch, data: bytes, launches_by_path,

@@ -15,8 +15,11 @@ blocks (``crc64.py``), 7z archives (``formats/sevenzip.py``) and the
 ``qzip`` / ``qzstd`` / ``aqzip`` tools (``python -m
 qatzip_tpu_torch.cli.qzip``). The probe tool ``python -m
 qatzip_tpu_torch.tools.devprims`` times the card's primitives with four
-more kernels (``ops/devprims.py``). It imports torch and never jax or
-qatzip_tpu.
+more kernels (``ops/devprims.py``). The device legs beside the host
+routes: the crc32 of full rows (``ops/crc32_mxu.py``) and the LZ4 decode's
+chain resolution (``ops/lz4_decode.py``), each a hand-written kernel,
+taken where ``CudaEngine`` routes to them; ``utils/trace.py`` traces with
+torch.profiler. It imports torch and never jax or qatzip_tpu.
 
 Quick start::
 

@@ -14,8 +14,10 @@ call (one per row width) and frames each request on its own.
 Decompression: strict gzip-ext members are walked natively and inflated
 in one GIL-free batched call; other gzip and 4-byte members take the
 member walk and the same batched inflate; LZ4 frames decode their blocks
-in one batched native call; raw and zlib streams, and whatever the fast
-walks do not take, go through the software walk (``sw/codec.py``).
+in one batched native call, or, when the caller's engine decodes on the
+device (``CudaEngine.decodes_on_device``), through the engine's
+``decompress_chunks``; raw and zlib streams, and whatever the fast walks
+do not take, go through the software walk (``sw/codec.py``).
 """
 
 from __future__ import annotations
@@ -177,7 +179,7 @@ def compress_buffers(datas: List[bytes], *, data_fmt: DataFormat, level: int,
 
 def decompress_buffer(data: bytes, *, data_fmt: DataFormat,
                       algorithm: str = "deflate",
-                      max_out: Optional[int] = None
+                      max_out: Optional[int] = None, engine=None
                       ) -> Tuple[bytes, int, int]:
     """Decompress one request. Returns (out, consumed, crc32(out)); raises
     QZ_DATA_ERROR on malformed input, or a member checksum or size that
@@ -185,10 +187,12 @@ def decompress_buffer(data: bytes, *, data_fmt: DataFormat,
     bytes in all, the software walk decodes them and stops after the
     member that reaches it (qzDecompressExt's bound on the destination,
     src/qatzip.c:2909); the other walks decode every member, as in the
-    JAX package."""
+    JAX package. ``engine`` (a session's ``CudaEngine``) decodes LZ4
+    blocks where it decodes on the device; deflate is inflated on the
+    host whatever the engine."""
     counters = get_counters()
     if algorithm == "lz4":
-        return _decompress_lz4(data)
+        return _decompress_lz4(data, engine)
     if algorithm == "lz4s":
         raise QzError(QZ_DATA_ERROR, "LZ4S decode is a post-process input")
     if data_fmt in (DataFormat.DEFLATE_RAW, DataFormat.ZLIB):
@@ -240,12 +244,14 @@ def decompress_buffer(data: bytes, *, data_fmt: DataFormat,
     return swc.sw_decompress_multi(data, data_fmt, max_out)
 
 
-def _decompress_lz4(data: bytes) -> Tuple[bytes, int, int]:
+def _decompress_lz4(data: bytes, engine=None) -> Tuple[bytes, int, int]:
     """Concatenated LZ4 frames: every block of a frame in one batched
     native decode, the content size and checksum checked. A frame whose
     non-final blocks fall short of the block size (another coder's)
     decodes block by block on the host pool; frames with block checksums, or
-    data that starts with no LZ4 frame, take the software walk."""
+    data that starts with no LZ4 frame, take the software walk. When
+    ``engine`` decodes on the device, each frame's coded blocks go through
+    its ``decompress_chunks`` instead, the stored blocks riding along."""
     info = parse_lz4_frame_header(data, 0)
     if info is None:
         return swc.sw_decompress_multi(data, DataFormat.LZ4)
@@ -254,6 +260,10 @@ def _decompress_lz4(data: bytes) -> Tuple[bytes, int, int]:
         return swc.sw_decompress_multi(data, DataFormat.LZ4)
     blocks, footer_off = walked
     max_block = 1 << (8 + 2 * max(4, (info.bd >> 4) & 7))
+    if engine is not None and engine.decodes_on_device():
+        out = _decode_lz4_blocks(data, blocks, max_block, engine)
+        return _finish_lz4_frame(data, info, footer_off, out, None,
+                                 crc32(out), engine)
     from . import native
     lib = native.get_lib()
     nb = len(blocks)
@@ -271,18 +281,36 @@ def _decompress_lz4(data: bytes) -> Tuple[bytes, int, int]:
     if not ((out_lens >= 0).all() and (out_lens[:-1] == max_block).all()):
         # a malformed block, or a non-final block short of max_block (a
         # frame from another coder): block by block on the host pool
-        payloads = [bytes(memoryview(data)[off:off + sz])
-                    for off, sz, _stored in blocks]
-        coded = [p for p, b in zip(payloads, blocks) if not b[2]]
-        decoded = iter(host_engine.decompress_chunks(
-            coded, [max_block] * len(coded), algorithm="lz4"))
-        out = b"".join(p if b[2] else next(decoded)
-                       for p, b in zip(payloads, blocks))
+        out = _decode_lz4_blocks(data, blocks, max_block, host_engine)
         frame_xxh, total_crc = None, crc32(out)
     else:
         out = buf[:int(out_lens.sum())]
         total_crc = crc32_combine_many([int(c) for c in crcs],
                                        [int(x) for x in out_lens])
+    return _finish_lz4_frame(data, info, footer_off, out, frame_xxh,
+                             total_crc, engine)
+
+
+def _decode_lz4_blocks(data: bytes, blocks, max_block: int,
+                       engine) -> bytes:
+    """A frame's blocks decoded through ``engine.decompress_chunks`` (the
+    coded ones, each of at most ``max_block`` bytes) and joined with the
+    stored ones, in order."""
+    payloads = [bytes(memoryview(data)[off:off + sz])
+                for off, sz, _stored in blocks]
+    coded = [p for p, b in zip(payloads, blocks) if not b[2]]
+    decoded = iter(engine.decompress_chunks(
+        coded, [max_block] * len(coded), algorithm="lz4"))
+    return b"".join(p if b[2] else next(decoded)
+                    for p, b in zip(payloads, blocks))
+
+
+def _finish_lz4_frame(data: bytes, info, footer_off: int, out: bytes,
+                      frame_xxh, total_crc: int, engine
+                      ) -> Tuple[bytes, int, int]:
+    """Check a decoded frame's content checksum (``frame_xxh`` when the
+    decode took it, else xxh32 of ``out``) and content size, then decode
+    the frames that follow it."""
     consumed = footer_off + 4
     if info.has_content_checksum:
         if consumed + 4 > len(data):
@@ -296,7 +324,7 @@ def _decompress_lz4(data: bytes) -> Tuple[bytes, int, int]:
         raise QzError(QZ_DATA_ERROR, "LZ4 content size mismatch")
     get_counters().bump("hw_decompress", 1, consumed)
     if consumed < len(data):
-        rest, more, rest_crc = _decompress_lz4(data[consumed:])
+        rest, more, rest_crc = _decompress_lz4(data[consumed:], engine)
         if more:
             out += rest
             consumed += more

@@ -73,6 +73,8 @@ ENTRY(lane_gather, "pppiip", P(0), P(1), P(2), I(3), I(4), P(5))
 ENTRY(sublane_gather, "pppiip", P(0), P(1), P(2), I(3), I(4), P(5))
 ENTRY(roll_sum, "ppipip", P(0), P(1), I(2), P(3), I(4), P(5))
 ENTRY(bitonic128, "ppppip", P(0), P(1), P(2), P(3), I(4), P(5))
+ENTRY(lz4_resolve_refs, "pppiiip", P(0), P(1), P(2), I(3), I(4), I(5), P(6))
+ENTRY(crc32_rows, "ppiiip", P(0), P(1), I(2), I(3), I(4), P(5))
 
 #define METHOD(name) \
   {#name, (PyCFunction)(void (*)(void))py_##name, METH_FASTCALL, NULL}
@@ -81,7 +83,8 @@ static PyMethodDef methods[] = {
     METHOD(candidate_search), METHOD(parse_scan),   METHOD(pack_rows),
     METHOD(huffman_lookup),   METHOD(symbol_histogram),
     METHOD(lz4_pack_rows),    METHOD(lane_gather),  METHOD(sublane_gather),
-    METHOD(roll_sum),         METHOD(bitonic128),   {NULL, NULL, 0, NULL}};
+    METHOD(roll_sum),         METHOD(bitonic128),   METHOD(lz4_resolve_refs),
+    METHOD(crc32_rows),       {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "_qz_kernels",

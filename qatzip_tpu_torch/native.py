@@ -29,6 +29,7 @@ _SHIM = os.path.join(CSRC_DIR, "zstd_shim")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u16p = ctypes.POINTER(ctypes.c_uint16)
+_i32p = ctypes.POINTER(ctypes.c_int32)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -109,6 +110,9 @@ class NativeLib:
         L.qz_lz4_decompress_block.restype = ctypes.c_int64
         L.qz_lz4_decompress_block.argtypes = [_u8p, ctypes.c_int64, _u8p,
                                               ctypes.c_int64]
+        L.qz_lz4_ref_block.restype = ctypes.c_int64
+        L.qz_lz4_ref_block.argtypes = [_u8p, ctypes.c_int64, _i32p,
+                                       ctypes.c_int64]
         L.qz_lz4_decompress_batch.restype = None
         L.qz_lz4_decompress_batch.argtypes = [
             _u8p, _i64p, _i64p, _u8p, _i64p, _i64p, _i64p, ctypes.c_int32,
@@ -398,6 +402,19 @@ class NativeLib:
         if r < 0:
             raise ValueError("malformed LZ4 block")
         return dst[:r].tobytes()
+
+    def lz4_ref_block(self, payload, ref_row: np.ndarray, cap: int) -> int:
+        """Parse one LZ4 block into ``ref_row`` (a contiguous int32 array
+        of at least ``cap`` entries): ``-(byte + 1)`` at a literal's output
+        position, the earlier output index it copies at a match's. Returns
+        the decoded size, or -1 for a malformed block or one over ``cap``
+        bytes; positions past the decoded size keep their values."""
+        if (ref_row.dtype != np.int32 or not ref_row.flags.c_contiguous
+                or len(ref_row) < cap):
+            raise ValueError("ref_row must be a contiguous int32 array of "
+                             f"at least {cap} entries")
+        return int(self._lib.qz_lz4_ref_block(
+            _ptr(_u8(payload)), len(payload), _ptr(ref_row, _i32p), cap))
 
     def lz4_batch_bytes(self, data, in_offs, in_lens, out_caps,
                         want_xxh: bool = False, xxh_seed: int = 0):

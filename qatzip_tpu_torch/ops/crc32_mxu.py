@@ -1,0 +1,146 @@
+"""Batched CRC32 of whole rows on the device.
+
+Counterpart of ``qatzip_tpu/ops/crc32_mxu.py``, whose name it keeps. The
+JAX package takes a tile's CRCs as one GF(2) matrix product on the TPU's
+matrix unit: CRC32 is affine, crc(M) = crc(0^n) ^ L(M), and for a fixed
+length n the linear part L is an (8n, 32) bit matrix V, so
+
+    counts[B, 32] = bits[B, 8n] @ V[8n, 32]
+    crc[B]        = crc(0^n) ^ packbits(counts & 1)
+
+On the H100 it is no matrix product: the hand kernel ``crc32_rows``
+(``csrc/crc32_rows.cu``) reads each byte once, takes each 256-byte
+segment's linear part with slicing tables, and folds the segments with
+GF(2) shifts (zlib's ``crc32_combine``). :func:`crc32_batch_ref`, the
+plain version, is the JAX formulation in torch (float32, exact while the
+counts stay <= 2^24, so for n <= 2 MiB).
+
+Rows shorter than n (zero-padded) get the crc of the padded row: the
+caller takes the host crc for those.
+"""
+
+from __future__ import annotations
+
+import threading
+import zlib
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import cuda_pack as cp
+from .cuda_pack import LAUNCHES, _device, _require
+
+_CRC_TABLE = None
+_v_cache: Dict[int, np.ndarray] = {}
+_v_dev_cache: Dict[Tuple[int, str], torch.Tensor] = {}
+_zero_crc_cache: Dict[int, int] = {}
+_lock = threading.Lock()
+
+
+def _crc_table() -> np.ndarray:
+    global _CRC_TABLE
+    if _CRC_TABLE is None:
+        poly = np.uint32(0xEDB88320)
+        t = np.arange(256, dtype=np.uint32)
+        for _ in range(8):
+            t = np.where(t & 1, (t >> np.uint32(1)) ^ poly,
+                         t >> np.uint32(1))
+        _CRC_TABLE = t
+    return _CRC_TABLE
+
+
+def _build_v(n: int) -> np.ndarray:
+    """V[i*8+k] = L(bit k of byte i) for an n-byte message: the 8
+    single-bit seeds advanced through the trailing zero bytes with the
+    (linear) byte-0 crc update."""
+    tab = _crc_table()
+    seeds = np.zeros(8, np.uint32)
+    for k in range(8):
+        seeds[k] = tab[(1 << k) & 0xFF] ^ tab[0]
+    v = np.empty((n, 8), np.uint32)
+    cur = seeds.copy()
+    v[n - 1] = cur
+    for d in range(1, n):
+        cur = (cur >> np.uint32(8)) ^ tab[cur & np.uint32(0xFF)]
+        v[n - 1 - d] = cur
+    return v.reshape(n * 8, 1)
+
+
+def _v_bits(n: int) -> np.ndarray:
+    """(8n, 32) float32 matrix of V's bits (bit j of each row's value)."""
+    with _lock:
+        got = _v_cache.get(n)
+        if got is not None:
+            return got
+        v = _build_v(n).reshape(-1)
+        bits = ((v[:, None] >> np.arange(32, dtype=np.uint32)[None, :])
+                & 1).astype(np.float32)
+        _v_cache[n] = bits
+        return bits
+
+
+def _zero_crc(n: int) -> int:
+    with _lock:
+        got = _zero_crc_cache.get(n)
+        if got is None:
+            got = zlib.crc32(b"\x00" * n) & 0xFFFFFFFF
+            _zero_crc_cache[n] = got
+        return got
+
+
+def _v_on(n: int, device: torch.device) -> torch.Tensor:
+    """_v_bits(n) as a float32 tensor on ``device``, kept per device."""
+    key = (n, str(device))
+    got = _v_dev_cache.get(key)
+    if got is None:
+        got = torch.from_numpy(_v_bits(n)).to(device)
+        with _lock:
+            _v_dev_cache[key] = got
+    return got
+
+
+def _check(data: torch.Tensor, n: int) -> int:
+    if data.dim() != 2 or data.shape[1] != n:
+        raise ValueError(f"data must be (B, {n}), got {tuple(data.shape)}")
+    dev = _device(data)
+    _require(data, "data", torch.uint8, dev)
+    return dev
+
+
+def crc32_batch_ref(data: torch.Tensor, *, n: int) -> torch.Tensor:
+    """Plain version of :func:`crc32_batch_device`: the JAX package's
+    formulation, the rows' bits (B, 8n) @ V (8n, 32) in float32 (the
+    counts are exact for n up to 2 MiB), then parity, packing and
+    ^ crc(0^n)."""
+    _check(data, n)
+    if n > 1 << 21:
+        raise ValueError(f"row width {n}: the float32 counts are exact only "
+                         "up to 2 MiB")
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    bits = ((data[:, :, None] >> shifts) & 1).reshape(data.shape[0], n * 8)
+    counts = bits.to(torch.float32) @ _v_on(n, data.device)
+    parity = counts.to(torch.int64) & 1
+    weights = torch.ones(32, dtype=torch.int64, device=data.device) << \
+        torch.arange(32, dtype=torch.int64, device=data.device)
+    return (parity * weights).sum(1) ^ _zero_crc(n)
+
+
+def crc32_batch_device(data: torch.Tensor, *, n: int) -> torch.Tensor:
+    """CRC32 of every row of ``data`` (B, n) uint8, each row whole.
+
+    Returns a (B,) int64 tensor of the uint32 crcs, on ``data``'s device.
+    A CUDA tensor goes through the kernel ``crc32_rows``; a CPU tensor
+    through :func:`crc32_batch_ref`."""
+    dev = _check(data, n)
+    if dev < 0:
+        return crc32_batch_ref(data, n=n)
+    b = data.shape[0]
+    out = torch.empty((b,), dtype=torch.int32, device=data.device)
+    if b:
+        z = _zero_crc(n)
+        k = cp._ext or cp.kernels()
+        k.crc32_rows(data.data_ptr(), out.data_ptr(), b, n,
+                     z - (1 << 32) if z >= 1 << 31 else z, k.stream(dev))
+        LAUNCHES["crc32_rows"] += 1
+    return out.to(torch.int64) & 0xFFFFFFFF

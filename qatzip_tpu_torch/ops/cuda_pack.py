@@ -27,7 +27,14 @@ what it replaces:
   * ``lane_gather``, ``sublane_gather``, ``roll_sum`` and ``bitonic128``
     — the probes of ``tools/devprims.py`` (its Pallas gathers, rolls and
     bitonic sort), which no codec path runs; their wrappers and plain
-    versions live in ``devprims.py``.
+    versions live in ``devprims.py``;
+  * ``lz4_resolve_refs`` — the device LZ4 decode's chain resolution,
+    which the JAX package ran as an XLA loop of gathers
+    (``lz4_decode.py::resolve_refs``); its wrapper and plain version live
+    in ``lz4_decode.py``;
+  * ``crc32_rows`` — the device CRC32, an XLA dot in the JAX package
+    (``crc32_mxu.py::crc32_batch_device``); its wrapper and plain version
+    live in ``crc32_mxu.py``.
 
 32-bit words cross the kernel interface as int32 tensors holding the
 uint32 bit pattern (torch has no full uint32 arithmetic). The plain
@@ -44,7 +51,7 @@ import torch
 LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "pack_rows": 0,
             "huffman_lookup": 0, "symbol_histogram": 0, "lz4_pack_rows": 0,
             "lane_gather": 0, "sublane_gather": 0, "roll_sum": 0,
-            "bitonic128": 0}
+            "bitonic128": 0, "lz4_resolve_refs": 0, "crc32_rows": 0}
 
 #: the kernel extension module once loaded (``kernels()``); a wrapper
 #: reads it as ``_ext or kernels()``, so no lock is taken after the load

@@ -30,11 +30,21 @@ others end with the full-flush sync), and their payloads are joined into
 one raw stream. LZ4 and LZ4s blocks cannot be joined, so such chunks go
 to the host coder, as in the JAX package.
 
-Results return as (payload, crc32) per chunk in submission order. On
-``device="cpu"`` the same code runs the kernels' plain versions.
+Results return as (payload, crc32) per chunk in submission order. Each
+chunk's crc32 comes from the host pool, or, where ``crc_on_device``
+says so, for every full row from ``crc32_batch_device`` on the tile
+already on the device (a ragged row's from the host). A crc is the same
+number wherever it is taken, so no byte of any path depends on the
+choice.
 
-Not ported yet: compress-and-verify, the multi-tile scan grouping, the
-mesh, the device CRC and the device LZ4 decode.
+``decompress_chunks`` decodes independent LZ4 blocks: on the device
+(a host parse into a reference plane, the chains resolved by the kernel
+``lz4_resolve_refs``, ops/lz4_decode.py) where ``decodes_on_device``
+says so, else on the host pool. On ``device="cpu"`` the same code runs
+the kernels' plain versions.
+
+Not ported yet: compress-and-verify, the multi-tile scan grouping and
+the mesh.
 """
 
 from __future__ import annotations
@@ -45,9 +55,11 @@ import numpy as np
 import torch
 
 from ..ops.checksum import crc32
+from ..ops.crc32_mxu import crc32_batch_device
 from ..ops.deflate_pack import (deflate_analyze_hist, deflate_pack_device,
                                 deflate_pack_dynamic, finish_stream,
                                 finish_stream_dynamic)
+from ..ops.lz4_decode import decode_blocks_device
 from ..ops.lz4_pack import lz4_pack_device
 from ..ops.lz77 import lz77_tokenize, merge_segment_tokens
 
@@ -137,7 +149,8 @@ class CudaEngine:
 
     def _tokenize_tiles(self, chunks: Sequence[bytes], n: int, level: int,
                         algorithm: str = "deflate"):
-        """Yield (tile_start, tile_len, tokens uint32, ntok) per tile.
+        """Yield (tile_start, tile_len, tokens uint32, ntok, crcs) per
+        tile (``crcs``: see ``_host_crcs``).
 
         Every tile is dispatched first; the fetch is two-phase: ntok, then
         only the used token prefix, rounded to a bucket. With compact_seg
@@ -151,11 +164,12 @@ class CudaEngine:
         for start in range(0, len(chunks), TILE_B):
             tile = chunks[start:start + TILE_B]
             data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
+            dd = torch.from_numpy(data).to(self.device)
             toks, ntok = lz77_tokenize(
-                torch.from_numpy(data).to(self.device),
-                torch.from_numpy(lengths).to(self.device), n=n, **kw)
-            pending.append((start, len(tile), toks, ntok))
-        for start, nt, toks, ntok in pending:
+                dd, torch.from_numpy(lengths).to(self.device), n=n, **kw)
+            pending.append((start, len(tile), toks, ntok,
+                            self._tile_crcs(dd, lengths, n)))
+        for start, nt, toks, ntok, dcrc in pending:
             ntok_np = ntok.cpu().numpy()
             if ntok_np.ndim == 2:
                 # segment-compacted: fetch each segment's used prefix, or
@@ -168,7 +182,8 @@ class CudaEngine:
                     sl = sl[:, :, :k]
             else:
                 sl = toks[:, :_fetch_bucket(int(ntok_np.max()), n)]
-            yield start, nt, sl.cpu().numpy().view(np.uint32), ntok_np
+            yield (start, nt, sl.cpu().numpy().view(np.uint32), ntok_np,
+                   _host_crcs(dcrc))
 
     def packs_on_device(self, huffman_static: bool,
                         algorithm: str = "deflate") -> bool:
@@ -192,6 +207,62 @@ class CudaEngine:
             return False
         return ((algorithm == "deflate" and huffman_static)
                 or self.device.type == "cuda")
+
+    def crc_on_device(self) -> bool:
+        """Whether full rows take their crc32 from the device
+        (``crc32_batch_device`` on the staged tile) instead of the host
+        pool.
+
+        On a CUDA device they do: on an NVIDIA H100 80GB HBM3 at 700.00 W
+        with 8 host cores, the kernel ``crc32_rows`` took 0.021 ms of
+        device time for a tile of 256 x 64 KiB (0.029-0.059 ms with its
+        wrapper's conversion), where the host crc32 of the same rows on
+        the host pool took 11.0-11.9 ms, in each of two chip_smoke.py
+        runs; a 64 MiB request's warm GB/s with either crc stayed within
+        its run-to-run noise (token path 0.1158 host against 0.1194
+        device, dynamic device pack 0.2237 against 0.2078, medians of
+        four turns each; PERF.md). On the CPU the host takes every crc,
+        the JAX package's default. The bytes are the same either way."""
+        return self.device.type == "cuda"
+
+    def decodes_on_device(self) -> bool:
+        """Whether LZ4 blocks decode on the device leg
+        (``ops/lz4_decode.py``) instead of the host pool.
+
+        They do not: on an NVIDIA H100 80GB HBM3 at 700.00 W with 8 host
+        cores, the LZ4 session's 64 MiB frame (896 coded blocks) decoded
+        at 0.8611-0.8720 GB/s warm on the host leg against 0.2467-0.3506
+        on the device leg in each of two chip_smoke.py runs: the device
+        leg's host parse into reference planes alone took 78-108 ms, and
+        its device work (h2d of the planes, ``lz4_resolve_refs``, d2h)
+        5.5-6.1 ms (PERF.md). The device leg stays reachable by holding
+        this route, as the tests and chip_smoke.py do. On the CPU the
+        host decodes, the JAX package's default."""
+        return False
+
+    def _tile_crcs(self, dd: torch.Tensor, lengths: np.ndarray, n: int):
+        """A staged tile's device crcs where ``crc_on_device`` says so:
+        (the (b,) crcs on the device, host mask of the full rows), else
+        None."""
+        if not self.crc_on_device():
+            return None
+        return crc32_batch_device(dd, n=n), lengths == n
+
+    def decompress_chunks(self, payloads: Sequence[bytes],
+                          expected_sizes: Sequence[int], *,
+                          algorithm: str) -> List[bytes]:
+        """Decode independent LZ4 blocks, in order, each of at most its
+        expected size: on this engine's device where ``decodes_on_device``
+        says so, else on the host pool (``HostEngine.decompress_chunks``,
+        which takes LZ4 only: the codec inflates deflate members itself,
+        on the host, as the JAX package does). A malformed block raises
+        QZ_DATA_ERROR on either leg."""
+        if algorithm == "lz4" and self.decodes_on_device():
+            return decode_blocks_device(payloads, expected_sizes,
+                                        device=self.device)
+        from ..engines import host_engine
+        return host_engine.decompress_chunks(payloads, expected_sizes,
+                                             algorithm=algorithm)
 
     def compress_chunks(self, chunks: Sequence[bytes], *, level: int,
                         algorithm: str = "deflate",
@@ -255,7 +326,7 @@ class CudaEngine:
         lib = native.get_lib()
 
         def pack_one(args):
-            gi, row_toks, row_ntok = args
+            gi, row_toks, row_ntok, dcrc = args
             chunk = chunks[gi]
             if np.ndim(row_ntok) > 0:       # segment-compacted (nseg, k)
                 toks = merge_segment_tokens(row_toks.ravel(), row_ntok,
@@ -269,11 +340,13 @@ class CudaEngine:
             else:
                 payload = lib.deflate_pack(chunk, toks, len(toks),
                                            final=finals[gi], mode=mode)
-            return payload, lib.crc32(chunk)
+            return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
         pool = host_pool()
-        futures = [pool.submit(pack_one, (start + i, toks[i], ntok[i]))
-                   for start, nt, toks, ntok in tiles for i in range(nt)]
+        futures = [pool.submit(pack_one, (start + i, toks[i], ntok[i],
+                                          _row_crc(crcs, i)))
+                   for start, nt, toks, ntok, crcs in tiles
+                   for i in range(nt)]
         return [f.result() for f in futures]
 
     # -- the full-device DEFLATE pack ---------------------------------------
@@ -281,9 +354,10 @@ class CudaEngine:
     def _device_pack(self, chunks: Sequence[bytes], n: int, level: int,
                      dynamic: bool):
         """Dispatch every tile's device pack. Returns one (tile_start,
-        tile_len, words, nbits, hdrs, packs) per tile: device words and
-        bit counts, and for dynamic tiles each chunk's header bytes and
-        lit/len table (its EOB code). Dynamic tiles run pass 1 one tile
+        tile_len, words, nbits, hdrs, packs, dcrc) per tile: device words
+        and bit counts, for dynamic tiles each chunk's header bytes and
+        lit/len table (its EOB code), and the tile's device crcs
+        (``_tile_crcs``). Dynamic tiles run pass 1 one tile
         ahead of pass 2, so the host builds tile k's trees while the
         device analyzes tile k + 1, and at most two tiles' planes are
         held at a time."""
@@ -296,12 +370,14 @@ class CudaEngine:
             data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
             dd = torch.from_numpy(data).to(self.device)
             ll = torch.from_numpy(lengths).to(self.device)
+            dcrc = self._tile_crcs(dd, lengths, n)
             if not dynamic:
                 words, nbits = deflate_pack_device(dd, ll, n=n, **pkw)
-                items.append((start, len(tile), words, nbits, None, None))
+                items.append((start, len(tile), words, nbits, None, None,
+                              dcrc))
                 continue
             hist, *planes = deflate_analyze_hist(dd, ll, n=n, **pkw)
-            cur = (start, len(tile), dd, planes, _to_host(hist))
+            cur = (start, len(tile), dd, planes, _to_host(hist), dcrc)
             if ahead is not None:
                 items.append(self._dyn_pass2(n, *ahead))
             ahead = cur
@@ -309,7 +385,7 @@ class CudaEngine:
             items.append(self._dyn_pass2(n, *ahead))
         return items
 
-    def _dyn_pass2(self, n, start, nt, dd, planes, hist):
+    def _dyn_pass2(self, n, start, nt, dd, planes, hist, dcrc):
         """Dynamic pass 2 for one tile: wait for its histograms, build each
         chunk's trees and header on the host, dispatch the pack."""
         hist_np, ready = hist
@@ -321,19 +397,20 @@ class CudaEngine:
                 self.device),
             torch.from_numpy(dpacks.astype(np.int32)).to(self.device),
             torch.from_numpy(hbits).to(self.device), n=n)
-        return start, nt, words, nbits, hdrs, packs
+        return start, nt, words, nbits, hdrs, packs, dcrc
 
     @staticmethod
     def _fetch_words(items):
         """Yield each tile with its words fetched: the prefix that covers
         the longest row, rounded to a bucket (the dynamic nbits leaves out
         the <= 15-bit EOB, hence the pad)."""
-        for start, nt, words, nbits, hdrs, packs in items:
+        for start, nt, words, nbits, hdrs, packs, dcrc in items:
             nbits_np = nbits.cpu().numpy()
             maxw = int(nbits_np.max() + 15 + 31) // 32 + 1
             k = _fetch_bucket(maxw, words.shape[1])
             words_np = words[:, :k].cpu().numpy().view(np.uint32)
-            yield start, nt, words_np, nbits_np, hdrs, packs
+            yield (start, nt, words_np, nbits_np, hdrs, packs,
+                   _host_crcs(dcrc))
 
     def _finish(self, chunks, finals, fetched):
         """Frame every fetched row on the host pool, in submission order:
@@ -344,7 +421,7 @@ class CudaEngine:
         lib = native.get_lib()
 
         def finish_one(args):
-            gi, words_row, bits, hdr, eob_pack = args
+            gi, words_row, bits, hdr, eob_pack, dcrc = args
             chunk = chunks[gi]
             if hdr is not None:
                 payload = finish_stream_dynamic(words_row, bits, hdr,
@@ -360,14 +437,15 @@ class CudaEngine:
                 payload = lib.deflate_pack(chunk, np.asarray(runs, np.uint32),
                                            len(runs), final=finals[gi],
                                            mode=0)
-            return payload, lib.crc32(chunk)
+            return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
         pool = host_pool()
         futures = [pool.submit(finish_one, (
             start + i, words_np[i], int(nbits_np[i]),
             hdrs[i] if hdrs is not None else None,
-            int(packs[i][256]) if packs is not None else 0))
-            for start, nt, words_np, nbits_np, hdrs, packs in fetched
+            int(packs[i][256]) if packs is not None else 0,
+            _row_crc(crcs, i)))
+            for start, nt, words_np, nbits_np, hdrs, packs, crcs in fetched
             for i in range(nt)]
         return [f.result() for f in futures]
 
@@ -375,27 +453,29 @@ class CudaEngine:
 
     def _lz4_device_pack(self, chunks: Sequence[bytes], n: int):
         """Dispatch every tile's LZ4 device pack. Returns one (tile_start,
-        tile_len, words, nbytes, ok) per tile, all on the device."""
+        tile_len, words, nbytes, ok, dcrc) per tile, all on the device
+        (``dcrc``: ``_tile_crcs``)."""
         items = []
         for start in range(0, len(chunks), TILE_B):
             tile = chunks[start:start + TILE_B]
             data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
+            dd = torch.from_numpy(data).to(self.device)
             words, nbytes, ok = lz4_pack_device(
-                torch.from_numpy(data).to(self.device),
-                torch.from_numpy(lengths).to(self.device), n=n)
-            items.append((start, len(tile), words, nbytes, ok))
+                dd, torch.from_numpy(lengths).to(self.device), n=n)
+            items.append((start, len(tile), words, nbytes, ok,
+                          self._tile_crcs(dd, lengths, n)))
         return items
 
     @staticmethod
     def _fetch_lz4(items):
         """Yield each tile with its block bytes fetched: the word prefix
         that covers the longest row, rounded to a bucket."""
-        for start, nt, words, nbytes, ok in items:
+        for start, nt, words, nbytes, ok, dcrc in items:
             nb_np = nbytes.cpu().numpy()
             ok_np = ok.cpu().numpy()
             k = _fetch_bucket(int(nb_np.max() + 3) // 4 + 1, words.shape[1])
             yield (start, nt, words[:, :k].cpu().numpy().view(np.uint32),
-                   nb_np, ok_np)
+                   nb_np, ok_np, _host_crcs(dcrc))
 
     def _finish_lz4(self, chunks, fetched):
         """Each chunk's block on the host pool, in submission order: the
@@ -406,20 +486,36 @@ class CudaEngine:
         lib = native.get_lib()
 
         def finish_one(args):
-            gi, words_row, nb, row_ok = args
+            gi, words_row, nb, row_ok, dcrc = args
             chunk = chunks[gi]
             if row_ok and len(chunk):
                 payload = words_row[:(nb + 3) // 4].tobytes()[:nb]
             else:
                 payload = lib.lz4_compress_block(chunk)
-            return payload, lib.crc32(chunk)
+            return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
         pool = host_pool()
         futures = [pool.submit(finish_one, (start + i, words_np[i],
-                                            int(nb_np[i]), bool(ok_np[i])))
-                   for start, nt, words_np, nb_np, ok_np in fetched
+                                            int(nb_np[i]), bool(ok_np[i]),
+                                            _row_crc(crcs, i)))
+                   for start, nt, words_np, nb_np, ok_np, crcs in fetched
                    for i in range(nt)]
         return [f.result() for f in futures]
+
+
+def _host_crcs(dcrc):
+    """A tile's device crcs (``CudaEngine._tile_crcs``) fetched: a numpy
+    array with the crc of each full row and -1 where the host takes it;
+    None where the host takes every crc."""
+    if dcrc is None:
+        return None
+    crcs, full = dcrc
+    return np.where(full, crcs.cpu().numpy(), -1)
+
+
+def _row_crc(crcs, i: int) -> int:
+    """Row ``i``'s device crc, or -1 when the host takes it."""
+    return -1 if crcs is None else int(crcs[i])
 
 
 def _to_host(t: torch.Tensor):

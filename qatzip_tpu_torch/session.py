@@ -211,7 +211,7 @@ class QzSession:
             raise QzError(QZ_PARAMS, "session is compress-only")
         out, consumed, _crc = _codec.decompress_buffer(
             bytes(data), data_fmt=self.data_fmt, algorithm=self.algorithm,
-            max_out=max_out)
+            max_out=max_out, engine=self._engine)
         self._count(consumed, len(out))
         return (out, consumed) if return_consumed else out
 

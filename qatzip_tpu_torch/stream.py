@@ -153,7 +153,7 @@ class QzStream:
         try:
             out, consumed, _crc = _codec.decompress_buffer(
                 bytes(self.pending_in), algorithm=sess.algorithm,
-                data_fmt=fmt)
+                data_fmt=fmt, engine=sess._engine)
         except QzError:
             if last:
                 raise

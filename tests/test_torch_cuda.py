@@ -839,6 +839,19 @@ def _card_calls(kernel):
     if kernel == "bitonic128":
         return (dv.bitonic128, dv.bitonic128_ref,
                 [_bitonic_keys("ties-bit31", rng, 37), _words(rng, (37, 128))])
+    if kernel == "lz4_resolve_refs":
+        from qatzip_tpu_torch.ops import lz4_decode as ld
+        planes = torch.from_numpy(lz4_ref_planes(
+            [b"A" * 3000, bytes(rng.integers(0, 4, 4000, dtype=np.uint8))],
+            4096))
+        return (lambda r: ld.resolve_refs(r, 13),
+                lambda r: ld.resolve_refs_ref(r, 13), [planes])
+    if kernel == "crc32_rows":
+        from qatzip_tpu_torch.ops import crc32_mxu as cm
+        return (lambda d: cm.crc32_batch_device(d, n=3000),
+                lambda d: cm.crc32_batch_ref(d, n=3000),
+                [torch.from_numpy(rng.integers(0, 256, (5, 3000),
+                                               dtype=np.uint8))])
     raise ValueError(kernel)
 
 
@@ -1004,3 +1017,160 @@ def test_two_threads_share_one_card_session(card):
         t.join(120)
     assert not any(t.is_alive() for t in threads) and not errors
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the device LZ4 decode and the device CRC32
+# ---------------------------------------------------------------------------
+
+def lz4_ref_planes(rows, n):
+    """(B, n) int32 reference planes of the rows' LZ4 blocks (the host
+    parse of the device decode), -1 padded."""
+    from qatzip_tpu_torch import native
+    lib = native.get_lib()
+    refs = np.full((len(rows), n), -1, np.int32)
+    for i, r in enumerate(rows):
+        assert lib.lz4_ref_block(lib.lz4_compress_block(r), refs[i], n) \
+            == len(r)
+    return refs
+
+
+def _resolve_rows(kind, n):
+    from corpus import make_corpus
+    rng = np.random.default_rng(17)
+    if kind == "A * n":
+        return [b"A" * n] * 3
+    if kind == "all literals":
+        return [rng.integers(0, 256, n, dtype=np.uint8).tobytes()] * 3
+    if kind == "corpus, B = 1":
+        return [make_corpus()["text"][:n]]
+    if kind == "corpus, B = 3":
+        c = make_corpus()
+        return [c["text"][:n], c["json"][:n // 2], c["runs"][:n - 7]]
+    if kind == "300,001 bytes":
+        return [b"Z" * 300001]
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("A * n", 65536), ("all literals", 65536), ("corpus, B = 1", 65536),
+    ("corpus, B = 3", 65536), ("300,001 bytes", 524288)])
+def test_lz4_resolve_refs_kernel_matches_plain(card, kind, n):
+    """Bytes and flag bit for bit at the decode's rounds, on chains of
+    depth n - 1, rows of literals only, 1 and 3 rows and a 300,001-byte
+    block at n = 524288; the kernel jumps the plane in place."""
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    host = torch.from_numpy(lz4_ref_planes(_resolve_rows(kind, n), n))
+    rounds = (n - 1).bit_length() + 1
+    on_card = host.to(card)
+    before = cuda_pack.LAUNCHES["lz4_resolve_refs"]
+    got, flag = ld.resolve_refs(on_card, rounds)
+    assert cuda_pack.LAUNCHES["lz4_resolve_refs"] == before + 1
+    want, want_flag = ld.resolve_refs_ref(host.clone(), rounds)
+    assert not bool(flag) and not bool(want_flag)
+    assert torch.equal(got.cpu(), want)
+    assert (on_card < 0).all()
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 3, 8])
+def test_lz4_resolve_refs_kernel_too_few_rounds(card, rounds):
+    """With too few rounds the kernel runs at most ``rounds`` passes over
+    a row, jumping in place, so every entry is at least as far along its
+    chain as after the plain version's synchronous rounds: each entry the
+    plain version resolved the kernel resolved to the same literal, and
+    where the plain version resolves every entry, the kernel gives its
+    bytes. The kernel may resolve where the plain version does not."""
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    host = torch.from_numpy(lz4_ref_planes(_resolve_rows("corpus, B = 3",
+                                                         65536), 65536))
+    plain_plane = host.clone()
+    want, want_flag = ld.resolve_refs_ref(plain_plane, rounds)
+    plane = host.to(card)
+    got, flag = ld.resolve_refs(plane, rounds)
+    plane = plane.cpu()
+    done = plain_plane < 0
+    assert torch.equal(plane[done], plain_plane[done])
+    if not bool(want_flag):
+        assert not bool(flag) and torch.equal(got.cpu(), want)
+    if rounds == 0:
+        assert bool(flag) and bool(want_flag)
+        assert torch.equal(plane, host)
+    print(f"rounds {rounds}: plain version unresolved {bool(want_flag)}, "
+          f"kernel unresolved {bool(flag)}")
+
+
+def test_lz4_device_decode_leg_on_card(card, monkeypatch):
+    """An LZ4 session on the card held on the device decode leg decodes
+    its own frames and a concatenated pair, through lz4_resolve_refs, to
+    what the host leg gives."""
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
+    from corpus import make_corpus
+    c = make_corpus()
+    data = c["text"][:300000] + c["noise"][:70000] + c["binary"][:100000]
+    sess = qz.QzSession(device="cuda")
+    sess.setup_lz4()
+    frame = sess.compress(data)
+    pair = frame + sess.compress(data[:70000])
+    host = [sess.decompress(f) for f in (frame, pair)]
+    monkeypatch.setattr(CudaEngine, "decodes_on_device", lambda self: True)
+    cuda_pack.reset_launch_counts()
+    got = [sess.decompress(f) for f in (frame, pair)]
+    assert got == host == [data, data + data[:70000]]
+    assert cuda_pack.LAUNCHES["lz4_resolve_refs"] >= 3
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("random", 65536), ("zero", 65536), ("ff", 65536), ("random", 2048),
+    ("random", 70000), ("random", 1000), ("unaligned", 4096)])
+def test_crc32_rows_kernel_matches_plain_and_zlib(card, kind, n):
+    """Every row's crc equals the plain version's and zlib's: random,
+    zero and 0xFF rows, a row of two 64 KiB blocks (the front one mostly
+    padding), n not a multiple of 16 and rows off their 16-byte alignment
+    (the byte path)."""
+    from qatzip_tpu_torch.ops import crc32_mxu as cm
+    rng = np.random.default_rng(n)
+    data = rng.integers(0, 256, (5, n + 1), dtype=np.uint8)
+    if kind == "zero":
+        data[:] = 0
+    elif kind == "ff":
+        data[:] = 0xFF
+    flat = torch.from_numpy(data.reshape(-1)).to(card)
+    if kind == "unaligned":
+        rows = flat[1:1 + 5 * n].reshape(5, n)
+    else:
+        rows = flat[:5 * n].reshape(5, n)
+    host = rows.cpu()
+    got = cm.crc32_batch_device(rows, n=n)
+    assert got.dtype == torch.int64
+    assert torch.equal(got.cpu(), cm.crc32_batch_ref(host, n=n))
+    assert got.tolist() == [zlib.crc32(r.numpy().tobytes()) for r in host]
+
+
+def test_device_crc_on_the_dynamic_device_pack(card, monkeypatch):
+    """A dynamic session on the card (the dynamic device pack) with the
+    device CRC held: crc32_rows runs, every member's crc and the
+    session's equal zlib's, and the bytes equal the host-crc run's (the
+    engine held on the host crc, which launches no crc32_rows)."""
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
+    from corpus import make_corpus
+    c = make_corpus()
+    data = c["text"][:400000] + c["json"][:100000] + c["text"][:3333]
+    monkeypatch.setattr(CudaEngine, "crc_on_device", lambda self: False)
+    cuda_pack.reset_launch_counts()
+    sess = qz.QzSession(device="cuda")
+    sess.setup_deflate()
+    host = sess.compress(data)
+    assert cuda_pack.LAUNCHES["crc32_rows"] == 0
+    monkeypatch.setattr(CudaEngine, "crc_on_device", lambda self: True)
+    cuda_pack.reset_launch_counts()
+    sess2 = qz.QzSession(device="cuda")
+    sess2.setup_deflate()
+    got = sess2.compress(data)
+    assert cuda_pack.LAUNCHES["crc32_rows"] >= 1
+    assert cuda_pack.LAUNCHES["pack_rows"] >= 1
+    assert got == host
+    assert sess2.crc32 == zlib.crc32(data)
+    d = zlib.decompressobj(31)
+    assert d.decompress(got) == data[:65536]

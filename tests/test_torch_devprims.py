@@ -200,8 +200,10 @@ def _wrapper_calls():
     """{kernel: (call, tensors, bad_shapes)}: each wrapper's call on small
     valid CPU tensors (``call(*tensors)``), and argument lists whose
     shapes or extents its kernel does not take."""
+    from qatzip_tpu_torch.ops import crc32_mxu as cm
     from qatzip_tpu_torch.ops import cuda_pack as cp
     from qatzip_tpu_torch.ops import deflate_pack as dp
+    from qatzip_tpu_torch.ops import lz4_decode as ld
     from qatzip_tpu_torch.ops import lz4_pack as lp
 
     def z(*shape, dtype=torch.int32):
@@ -243,6 +245,12 @@ def _wrapper_calls():
                       [z(8, 128), z(0)]]),
         "bitonic128": (dv.bitonic128, [z(8, 128), z(8, 128)],
                        [[z(8, 64), z(8, 64)], [z(8, 128), z(7, 128)]]),
+        "lz4_resolve_refs": (lambda r: ld.resolve_refs(r, 5), [z(2, 256) - 1],
+                             [[z(2, 2, 64) - 1], [z(256) - 1]]),
+        "crc32_rows": (lambda d: cm.crc32_batch_device(d, n=256),
+                       [z(2, 256, dtype=torch.uint8)],
+                       [[z(2, 128, dtype=torch.uint8)],
+                        [z(256, dtype=torch.uint8)]]),
     }
 
 
@@ -298,6 +306,9 @@ STUB(qz_roll_sum, const void* a, const void* b, int c, void* d, int e,
      void* s)
 STUB(qz_bitonic128, const void* a, const void* b, void* c, void* d, int e,
      void* s)
+STUB(qz_lz4_resolve_refs, void* a, void* b, void* c, int d, int e, int f,
+     void* s)
+STUB(qz_crc32_rows, const void* a, void* b, int c, int d, int e, void* s)
 int qz_sublane_gather(const void* x, const void* idx, void* out, int log_r,
                       int log_c, void* s) {
   seen[0] = (intptr_t)x; seen[1] = (intptr_t)idx; seen[2] = (intptr_t)out;
