@@ -2,7 +2,13 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (``python3 chip_smoke.py --host-cost`` runs only the host cost of one call
-of every kernel wrapper, ``host_cost_table``.)
+of every kernel wrapper, ``host_cost_table``; ``python3 chip_smoke.py
+--pair parent=a.log change=b.log ...`` reads the logs of earlier runs,
+of this tree and another, and sets the device times of
+``lz4_resolve_refs`` and ``crc32_rows`` side by side with their bounds,
+``pair_report``; ``python3 chip_smoke.py --crc-variants`` builds
+``crc32_rows`` in the other CTA shapes it was chosen over and times
+them, ``crc_variants``.)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the final line:
@@ -45,9 +51,15 @@ exits non-zero without the final line:
      each also against one PyTorch call (torch.gather, seven torch.roll
      summed, torch.sort with its payload gathered); the device LZ4
      decode's chain resolution on the reference planes of the first tile
-     of the LZ4 session's frame and on adversarial planes, and the device
-     CRC32 on the first tile, on zero and 0xFF rows and at n = 2048, each
-     beside the JAX route in torch and the host leg
+     of the LZ4 session's frame and on adversarial planes (too few
+     rounds, forward and self references, indices past the row, a
+     524,288-wide row on the wide kernel, chains at exactly the JAX
+     rounds at n = 4, 32 and 2048), and the device CRC32 on the
+     first tile, on zero and 0xFF rows, at n = 2048, 131072 and 65544,
+     one row and a second launch, each beside the JAX route in torch and
+     the host leg, and with its design and share of the bound, beside
+     the design it was chosen over (CRC_TABLE_CU's slicing-by-8 tables,
+     at every cluster size)
      (``decode_crc_kernels``); then the host cost of
      one call of every wrapper at its path's shape beside its library
      call (``host_cost_table``: a host clock over 1,000 calls, no sync
@@ -108,6 +120,7 @@ import glob
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -209,13 +222,18 @@ def device_ms(fn, reps: int, symbol: str = "") -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and symbol in e.key)
+    for _ in range(3):
+        # the profiler has once come back without the kernel it ran
+        # (a run of this script on the card, 1 of 9): profile again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and symbol in e.key)
+        if us > 0 or not symbol:
+            break
     check(us > 0 or not symbol, f"the profiler saw no kernel named "
           f"*{symbol}*")
     return us / reps / 1e3
@@ -584,7 +602,7 @@ def host_ms(fn, reps: int = 3) -> float:
 
 
 def decode_crc_kernels(dev, data: bytes, n: int, record, adversarial,
-                       res) -> None:
+                       res, crc_table) -> None:
     """The kernels of the device LZ4 decode and the device CRC32 against
     their plain versions on the card.
 
@@ -597,15 +615,26 @@ def decode_crc_kernels(dev, data: bytes, n: int, record, adversarial,
     in place) beside the plane's copy, the host parse, the plane's h2d
     and the host leg (the batched native decode of the same blocks).
     Then adversarial planes: b"A" * n rows (chains of depth n - 1), rows
-    of literals only, B = 1 and 3, one 300,001-byte block at n = 524288
-    (20 rounds), and 3 rounds (too few: the kernel must agree wherever
-    the plain version resolved).
+    of literals only, B = 1 and 3, 3 rounds (too few: the shared-memory
+    kernel runs the JAX rounds, so flag and bytes equal the plain
+    version's), a forward and a self reference, an index past the row,
+    one 300,001-byte block at n = 524288 (20 rounds; the wide kernel,
+    ``resolve_kernel_wide``), and at n = 4, 32 and 2048 a chain of depth
+    n - 1 and b"A" * n at exactly (n - 1).bit_length() rounds, the
+    fewest with which the plain version resolves them.
 
     ``crc32_rows``: the first 16 MB tile against the plain version (the
     JAX formulation: bits @ V in float32), zlib.crc32 of each row, beside
     one ``torch.matmul`` of the bits plane (the library call) and the
-    host crc32 of the same rows on the host pool; then zero and 0xFF rows
-    and n = 2048."""
+    host crc32 of the same rows on the host pool; then zero and 0xFF rows,
+    n = 2048 (one block a row), 131072 and 65544 (not a multiple of 16:
+    the kernel's byte loads), one row, and a second launch on the same
+    tile. Beside it the design it was chosen over, CRC_TABLE_CU's
+    slicing-by-8 tables with every cluster size (``crc_table_probe``),
+    checked against its crcs.
+
+    Each kernel's line gives its share of the bound; ``--pair`` sets the
+    lines of two trees' runs side by side."""
     import numpy as np
     import torch
     import qatzip_tpu_torch as qz
@@ -682,23 +711,36 @@ def decode_crc_kernels(dev, data: bytes, n: int, record, adversarial,
           f"parse into the plane {parse_ms:.3f} ms on the host pool, the "
           f"plane's h2d {h2d_ms:.4f} ms, the batched native decode of the "
           f"same {b} blocks {decode_ms:.3f} ms")
+    share = res["lz4_resolve_refs"]["bound_ms"] / ms
+    res["lz4_resolve_refs"]["share_of_bound"] = share
+    print(f"design lz4_resolve_refs: rows up to 65536 front to back in "
+          f"chunks of 16384 (resolve_kernel_chunks: two 512-thread CTAs an "
+          f"SM, 96 KiB of shared memory each, the plane read once, a "
+          f"reference before its chunk final at once, the chunk's chains "
+          f"jumped in place, the bytes written once; a row with a forward "
+          f"or self reference by the in-place loop), too few rounds by the "
+          f"JAX rounds in shared memory (resolve_kernel_smem), wider rows in "
+          f"place in device memory (resolve_kernel_wide); tile: {ms:.4f} ms "
+          f"of device time, {100 * share:.1f} % of the bound "
+          f"{res['lz4_resolve_refs']['bound_ms']:.4f} ms")
 
-    def resolve_case(label, src, r, resolves=True):
-        """The kernel against the plain version on ``src``: bit-identical
-        bytes and flag where the plain version resolves; with too few
-        rounds, the same literal at every position it resolved."""
+    def resolve_case(label, src, r, resolves=True, every_byte=True):
+        """The kernel against the plain version on ``src``: the same flag
+        and bit-identical bytes at every position the plain version
+        resolved (``every_byte``: at every position)."""
         left = torch.empty_like(src)
         got, flag = kernel(src, r, left)
         plain_plane = src.clone()
         want, want_flag = ld.resolve_refs_ref(plain_plane, r)
         check(bool(want_flag) != resolves, f"lz4_resolve_refs ({label}): "
               f"the plain version's flag is {bool(want_flag)}")
-        if resolves:
-            check(not bool(flag), f"lz4_resolve_refs ({label}): unresolved")
+        check(bool(flag) == bool(want_flag), f"lz4_resolve_refs ({label}): "
+              f"flag {bool(flag)}, the plain version's {bool(want_flag)}")
+        if every_byte:
             err = max_err(got, want)
         else:
             done = plain_plane < 0
-            err = max_err(left[done], plain_plane[done])
+            err = max_err(got[done], want[done])
         ms = device_ms(lambda: kernel(src, r, left), 5,
                               KERNEL_SYMBOLS["lz4_resolve_refs"])
         plain_ms = event_ms(lambda: ld.resolve_refs_ref(src.clone(), r), 1)
@@ -724,6 +766,29 @@ def decode_crc_kernels(dev, data: bytes, n: int, record, adversarial,
     resolve_case("the tile's first row, B = 1", plane[:1].clone(), rounds)
     resolve_case("the tile's first rows, B = 3", plane[:3].clone(), rounds)
     resolve_case("3 rounds (too few)", plane, 3, resolves=False)
+    odd = plane[:3].clone()
+    odd[0, 100] = n - 5                  # forward, to a resolving entry
+    odd[1, 777] = 777                    # a self reference: never resolves
+    odd[2, 3], odd[2, 4] = 4, 3          # a two-cycle
+    resolve_case("a forward and a self reference, a two-cycle", odd,
+                 rounds, resolves=False, every_byte=False)
+    past = plane[:3].clone()
+    past[0, 50] = n + 1000               # clipped to n - 1
+    past[2, 0] = 1 << 30
+    resolve_case("indices past the row", past, rounds, every_byte=False)
+    for small in (4, 32, 2048):
+        # the JAX rounds exactly: a row within one chunk takes the JAX
+        # rounds themselves there (the chunks would need one pass more)
+        rows_s = np.full((2, small), -1, np.int32)
+        rows_s[0] = np.arange(-1, small - 1)
+        rows_s[0, 0] = -1 - ord("A")
+        check(lib.lz4_ref_block(lib.lz4_compress_block(b"A" * small),
+                                rows_s[1], small) == small,
+              f"the host parse of b'A' * {small} failed")
+        resolve_case(f"a chain of depth {small - 1} and b'A' * {small}, "
+                     f"{(small - 1).bit_length()} rounds (the JAX rounds)",
+                     torch.from_numpy(rows_s).to(dev),
+                     (small - 1).bit_length())
     wide = 524288
     deep = np.full((1, wide), -1, np.int32)
     check(lib.lz4_ref_block(lib.lz4_compress_block(b"Z" * 300001), deep[0],
@@ -766,10 +831,33 @@ def decode_crc_kernels(dev, data: bytes, n: int, record, adversarial,
           f"(bits @ V, float32) {library_ms:.4f} ms; the host crc32 of the "
           f"same rows on the host pool {host_crc_ms:.3f} ms, on one thread "
           f"{serial_crc_ms:.3f} ms")
+    share = res["crc32_rows"]["bound_ms"] / dev_ms
+    res["crc32_rows"]["share_of_bound"] = share
+    ctas = TILE_B // 16 * (n // cm.BLOCK)
+    print(f"design crc32_rows: the JAX package's GF(2) product on the "
+          f"binary tensor cores (mma m16n8k256 .b1 .and.popc), 16 rows x a "
+          f"{cm.BLOCK}-byte block a CTA ({ctas} CTAs of 128 threads), "
+          f"V's fragments from L1, one shift product a block, the "
+          f"blocks xored into the row's crc by atomicXor after a memset; "
+          f"chosen over the slicing-by-8 tables (below) as the faster on "
+          f"the card; tile: {dev_ms:.4f} ms of device time, "
+          f"{100 * share:.1f} % of the bound "
+          f"{res['crc32_rows']['bound_ms']:.4f} ms")
+    res["crc32_rows"]["table_design"] = crc_table_probe(
+        crc_table, dev, tile, n, got, dev_ms)
+    again = cm.crc32_batch_device(tile, n=n)
+    check(torch.equal(again, cm.crc32_batch_device(tile, n=n)) and
+          again.tolist() == got.tolist(), "crc32_rows: two launches back to "
+          "back differ")
+    flat = tile.reshape(-1)
     for label, rows_t, width in (
             ("zero rows", torch.zeros_like(tile), n),
             ("0xFF rows", torch.full_like(tile, 0xFF), n),
-            ("n = 2048", tile.reshape(-1, 2048), 2048)):
+            ("n = 2048", tile.reshape(-1, 2048), 2048),
+            ("n = 131072", tile.reshape(-1, 131072), 131072),
+            ("n = 65544 (the byte path)",
+             flat[:flat.numel() // 65544 * 65544].reshape(-1, 65544), 65544),
+            ("one row", tile[:1], n)):
         got = cm.crc32_batch_device(rows_t, n=width)
         err = max_err(got, cm.crc32_batch_ref(rows_t, n=width))
         host = rows_t[:4].cpu().numpy()
@@ -779,7 +867,7 @@ def decode_crc_kernels(dev, data: bytes, n: int, record, adversarial,
                     event_ms(lambda: cm.crc32_batch_device(rows_t, n=width),
                              20),
                     event_ms(lambda: cm.crc32_batch_ref(rows_t, n=width), 2))
-    del tile, rows_t
+    del tile, rows_t, flat, again
     torch.cuda.empty_cache()
 
 
@@ -862,29 +950,270 @@ extern "C" int qz_chevron_loop(const void* x, const void* idx, void* out,
 }
 """
 
+# The design crc32_rows was chosen over, measured beside it and not part
+# of the library: slicing by 8. A row's 32 KiB blocks go to a thread block
+# cluster of C CTAs (a (256, 65536) tile at C = 2 is 512 CTAs of 256
+# threads); each thread takes L of one 128-byte segment with eight
+# 256-entry tables that its CTA builds in shared memory while the first
+# loads fly, and one product by its own x^(8 * 128 t) moves it to the
+# block's end; a CTA's blocks fold by Horner, and the cluster's rank 0
+# xors its CTAs' values through distributed shared memory, with crc(0^n),
+# into the row's int64 crc. Its shift table comes from table_shifts.
+CRC_TABLE_CU = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr uint32_t kPoly = 0xEDB88320u;  // reflected CRC-32
+constexpr int kThreads = 256;
+constexpr int kSeg = 128;                   // bytes a thread
+constexpr int kBlock = kThreads * kSeg;     // 32 KiB a block
+constexpr int kLoads = kSeg / 16 / 2;       // 16-byte loads a half segment
+constexpr int kMaxCluster = 8;              // CTAs a row at most
+// the shift table: kThreads thread shifts, the Horner stride, kMaxCluster
+// tail shifts (table_shifts)
+constexpr int kStride = kThreads;
+constexpr int kTail = kThreads + 1;
+
+// a * b mod P in zlib's reflected representation (bit 31 is x^0)
+__device__ __forceinline__ uint32_t multmodp(uint32_t a, uint32_t b) {
+  uint32_t p = 0;
+#pragma unroll
+  for (int i = 31; i >= 0; --i) {
+    p ^= b & (0u - ((a >> i) & 1u));
+    b = (b >> 1) ^ (kPoly & (0u - (b & 1u)));
+  }
+  return p;
+}
+
+__device__ __forceinline__ uint32_t step8(const uint32_t (*t)[256],
+                                          uint32_t crc, uint32_t lo,
+                                          uint32_t hi) {
+  lo ^= crc;
+  return t[7][lo & 0xFF] ^ t[6][(lo >> 8) & 0xFF] ^ t[5][(lo >> 16) & 0xFF] ^
+         t[4][lo >> 24] ^ t[3][hi & 0xFF] ^ t[2][(hi >> 8) & 0xFF] ^
+         t[1][(hi >> 16) & 0xFF] ^ t[0][hi >> 24];
+}
+
+__device__ void build_tables(uint32_t (*tab)[256], int tid) {
+  uint32_t c = tid;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c = (c >> 1) ^ (kPoly & (0u - (c & 1u)));
+  tab[0][tid] = c;
+  __syncthreads();
+#pragma unroll
+  for (int k = 1; k < 8; ++k) {
+    c = (c >> 8) ^ tab[0][c & 0xFF];
+    tab[k][tid] = c;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+crc_table_kernel(const uint8_t* __restrict__ data, long long* __restrict__ out,
+           const uint32_t* __restrict__ shifts, int n, uint32_t zero_crc,
+           int vec) {
+  __shared__ uint32_t tab[8][256];
+  __shared__ uint32_t warp_v[kThreads / 32];
+  __shared__ uint32_t part;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const uint8_t* row = data + (size_t)(blockIdx.x / csize) * n;
+  const int nb = (n + kBlock - 1) / kBlock;
+  const long long pad = (long long)nb * kBlock - n;
+  const uint32_t my_shift = shifts[tid];
+  bool built = false;
+  uint32_t acc = 0;
+  int last = -1;
+  for (int b = rank; b < nb; b += csize) {
+    // this thread's segment, counted from the block's end (thread 0 the
+    // last); its first byte's row index (below 0: the front padding)
+    const long long start =
+        (long long)(b + 1) * kBlock - (long long)(tid + 1) * kSeg - pad;
+    uint32_t crc = 0;
+    if (vec) {
+      // n % 16 == 0 and a 16-byte aligned tile: every load is whole,
+      // and wholly padding or wholly row
+      uint4 w[2][kLoads];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const long long p = start + (h * kLoads + u) * 16;
+          w[h][u] = p >= 0 ? __ldg(reinterpret_cast<const uint4*>(row + p))
+                           : make_uint4(0, 0, 0, 0);
+        }
+      if (!built) {           // while the loads are in flight
+        build_tables(tab, tid);
+        built = true;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          crc = step8(tab, crc, w[h][u].x, w[h][u].y);
+          crc = step8(tab, crc, w[h][u].z, w[h][u].w);
+        }
+    } else {
+      if (!built) {
+        build_tables(tab, tid);
+        built = true;
+      }
+      if (start + kSeg > 0) {
+        for (int o = 0; o < kSeg; o += 8) {
+          uint32_t lo = 0, hi = 0;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const long long p = start + o + u;
+            if (p >= 0) lo |= (uint32_t)row[p] << (8 * u);
+            if (p + 4 >= 0) hi |= (uint32_t)row[p + 4] << (8 * u);
+          }
+          crc = step8(tab, crc, lo, hi);
+        }
+      }
+    }
+    // this segment's L moved to the block's end, xored over the block
+    const uint32_t v = __reduce_xor_sync(
+        0xffffffffu, crc ? multmodp(crc, my_shift) : 0u);
+    if (lane == 0) warp_v[tid >> 5] = v;
+    __syncthreads();
+    if (tid == 0) {
+      uint32_t l = 0;
+#pragma unroll
+      for (int w8 = 0; w8 < kThreads / 32; ++w8) l ^= warp_v[w8];
+      acc = multmodp(acc, shifts[kStride]) ^ l;
+    }
+    last = b;
+    __syncthreads();   // warp_v is written again for the next block
+  }
+  if (tid == 0)
+    part = last >= 0 ? multmodp(acc, shifts[kTail + nb - 1 - last]) : 0u;
+  cluster.sync();
+  if (rank == 0 && tid == 0) {
+    uint32_t total = zero_crc;
+    for (int r = 0; r < csize; ++r) total ^= *cluster.map_shared_rank(&part, r);
+    out[blockIdx.x / csize] = (long long)total;
+  }
+  cluster.sync();      // the other CTAs' part stays until rank 0 read it
+}
+
+}  // namespace
+
+extern "C" int qz_crc32_rows_table(const void* data, void* out,
+                                   const void* shifts, int rows, int n,
+                                   int zero_crc, int cluster, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const int vec = ((uintptr_t)data % 16 == 0) && (n % 16 == 0);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, crc_table_kernel, (const uint8_t*)data,
+                                 (long long*)out, (const uint32_t*)shifts, n,
+                                 (uint32_t)zero_crc, vec);
+}
+"""
+#: CRC_TABLE_CU's geometry: threads a CTA, bytes a thread, CTAs a row
+TABLE_THREADS, TABLE_SEG, TABLE_MAX_CLUSTER = 256, 128, 8
+
+
+def table_shifts(cluster: int):
+    """CRC_TABLE_CU's shift table for a cluster of ``cluster`` CTAs,
+    uint32: TABLE_THREADS thread shifts x^(8 SEG t), the Horner stride
+    x^(8 BLOCK cluster) of a CTA's blocks, and TABLE_MAX_CLUSTER tail
+    shifts x^(8 BLOCK m), BLOCK = TABLE_THREADS * TABLE_SEG."""
+    import numpy as np
+    from qatzip_tpu_torch.ops import crc32_mxu as cm
+    block = TABLE_THREADS * TABLE_SEG
+    seg, blk = cm.x_pow(8 * TABLE_SEG), cm.x_pow(8 * block)
+    out = np.zeros(TABLE_THREADS + 1 + TABLE_MAX_CLUSTER, np.uint32)
+    cur = 1 << 31
+    for t in range(TABLE_THREADS):
+        out[t] = cur
+        cur = cm.multmodp(cur, seg)
+    out[TABLE_THREADS] = cm.x_pow(8 * block * cluster)
+    cur = 1 << 31
+    for m in range(TABLE_MAX_CLUSTER):
+        out[TABLE_THREADS + 1 + m] = cur
+        cur = cm.multmodp(cur, blk)
+    return out
+
+
+def crc_table_probe(lib, dev, tile, n: int, want, route_dev_ms: float):
+    """CRC_TABLE_CU on ``tile`` (B, n) at every cluster size: equal to
+    ``want`` (the library kernel's crcs, themselves zlib's), each one's
+    device time (the profiler, the kernel alone) beside the library
+    kernel's ``route_dev_ms``. Returns {cluster: ms}."""
+    import ctypes
+    import numpy as np
+    import torch
+    from qatzip_tpu_torch.ops import crc32_mxu as cm
+    rows = tile.shape[0]
+    z = cm._zero_crc(n)
+    out = torch.empty(rows, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    found = {}
+    for c in range(1, TABLE_MAX_CLUSTER + 1):
+        sh = torch.from_numpy(table_shifts(c).view(np.int32).copy()).to(dev)
+
+        def run(sh=sh, c=c):
+            rc = lib.qz_crc32_rows_table(
+                tile.data_ptr(), out.data_ptr(), sh.data_ptr(), rows, n,
+                z - (1 << 32) if z >= 1 << 31 else z, c, stream)
+            check(rc == 0, f"the table design, cluster {c}: cudaError {rc}")
+            return out
+        check(torch.equal(run(), want), f"the table design with a cluster "
+              f"of {c} differs from zlib.crc32")
+        found[c] = device_ms(run, 20, "crc_table_kernel")
+    print("design crc32_rows, the slicing-by-8 tables it was chosen over "
+          f"(CRC_TABLE_CU, equal to zlib.crc32), ({rows}, {n}), device time "
+          "(profiler) by CTAs a row: " + ", ".join(
+              f"{c}: {ms:.4f} ms" for c, ms in found.items()) +
+          f"; the library kernel {route_dev_ms:.4f} ms")
+    return found
+
 
 def build_measure(kernels_so: str):
     """(the measurement extension, LOOP_CU's two launch loops, seconds the
-    extension's compile took): MEASURE_SRC compiled by the binding's own
-    host compiler command and linked against ``kernels_so``; LOOP_CU
-    built by nvcc with ``-cudart shared`` beside the link."""
+    extension's compile took, CRC_TABLE_CU's library): MEASURE_SRC
+    compiled by the binding's own host compiler command and linked
+    against ``kernels_so``; LOOP_CU and CRC_TABLE_CU built by nvcc with
+    ``-cudart shared`` beside the link."""
     import ctypes
     import importlib.machinery
     from qatzip_tpu_torch.ops import _build
     src = os.path.join(_build.BUILD_DIR, "qz_measure.c")
     cu = os.path.join(_build.BUILD_DIR, "qz_loop_shared.cu")
-    for path, text in ((src, MEASURE_SRC), (cu, LOOP_CU)):
+    table_cu = os.path.join(_build.BUILD_DIR, "qz_crc_table.cu")
+    for path, text in ((src, MEASURE_SRC), (cu, LOOP_CU),
+                       (table_cu, CRC_TABLE_CU)):
         with open(path, "w") as f:
             f.write(text)
     obj, so, loop_so = src[:-2] + ".o", src[:-2] + ".so", cu[:-3] + ".so"
+    table_so = table_cu[:-3] + ".so"
     t0 = time.perf_counter()
     _build._run_all([_build.binding_command(src, obj)])
     secs = time.perf_counter() - t0
+    nvcc = [_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart",
+            "shared", "-I", _build.CSRC_DIR]
     _build._run_all([
         ["cc", "-shared", "-o", so, obj, kernels_so],
-        [_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart",
-         "shared", "-I", _build.CSRC_DIR, "-o", loop_so, cu]])
+        nvcc + ["-o", loop_so, cu], nvcc + ["-o", table_so, table_cu]])
     loader = importlib.machinery.ExtensionFileLoader("_qz_measure", so)
     spec = importlib.util.spec_from_file_location("_qz_measure", so,
                                                   loader=loader)
@@ -895,7 +1224,10 @@ def build_measure(kernels_so: str):
     loops = (lib.qz_launch_loop, lib.qz_chevron_loop)
     for loop in loops:
         loop.restype, loop.argtypes = ci, [vp, vp, vp, ci, ci, vp, ci]
-    return mod, loops, secs
+    table = ctypes.CDLL(table_so)
+    table.qz_crc32_rows_table.restype = ci
+    table.qz_crc32_rows_table.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    return mod, loops, secs, table
 
 
 def host_us(fns: dict, calls: int = 1000, batch: int = 100) -> dict:
@@ -1218,7 +1550,7 @@ def main() -> None:
     native.get_lib()
     t2 = time.perf_counter()
     kernels_so = _build.kernels_library()
-    measure, shared_loops, measure_s = build_measure(kernels_so)
+    measure, shared_loops, measure_s, crc_table = build_measure(kernels_so)
     lib = native.get_lib()
     check(lib.has_zstd, "the native library reaches no zstd >= 1.5 "
           f"(version {lib.zstd_version}): the lz4s -> zstd path needs "
@@ -1602,7 +1934,7 @@ def main() -> None:
     probe_kernels(dev, 128, record, adversarial, res)
     torch.cuda.empty_cache()
     del tile
-    decode_crc_kernels(dev, data, n, record, adversarial, res)
+    decode_crc_kernels(dev, data, n, record, adversarial, res, crc_table)
 
     # the host cost of one call of every wrapper, then the sublane
     # gather's part by part
@@ -2467,8 +2799,140 @@ def host_cost_only() -> None:
     print(json.dumps(host_cost_table(torch.device("cuda", 0))))
 
 
+#: ``--crc-variants``: csrc/crc32_rows.cu's CTA shape (kWarps x kSteps, the
+#: same 2 KiB block and fragments) and register cap, edited into a copy
+CRC_VARIANTS = {
+    "4 warps x 4 steps (the library's)": {},
+    "8 warps x 2 steps": {"kWarps = 4;": "kWarps = 8;",
+                          "kSteps = 4;": "kSteps = 2;"},
+    "8 warps x 2 steps, at most 64 registers": {
+        "kWarps = 4;": "kWarps = 8;", "kSteps = 4;": "kSteps = 2;",
+        "__launch_bounds__(kWarps * 32)": "__launch_bounds__(kWarps * 32, 4)"},
+}
+
+
+def crc_variants() -> None:
+    """``--crc-variants``: the card line, then csrc/crc32_rows.cu built
+    again (nvcc with ``-Xptxas -v``, all at once) in each shape of
+    CRC_VARIANTS: its registers, its crcs against zlib.crc32 and its
+    device time at (256, 65536) (the profiler), one line each."""
+    import ctypes
+    import numpy as np
+    import torch
+    check(torch.cuda.is_available(), "no CUDA device: torch.cuda is not "
+          "available")
+    from qatzip_tpu_torch.ops import _build
+    from qatzip_tpu_torch.ops import crc32_mxu as cm
+    print(card_line())
+    src = open(os.path.join(_build.CSRC_DIR, "crc32_rows.cu")).read()
+    out_dir = os.path.join(_build.BUILD_DIR, "crc_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for k, (name, edits) in enumerate(CRC_VARIANTS.items()):
+        text = src
+        for old, new in edits.items():
+            check(old in text, f"crc variant {name}: no {old!r} in the source")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"v{k}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = (cu[:-3] + ".so", subprocess.Popen(
+            [_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-I", _build.CSRC_DIR, "-o", cu[:-3] + ".so",
+             cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    dev = torch.device("cuda", 0)
+    n, rows = 65536, 256
+    tile = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (rows, n), dtype=np.uint8)).to(dev)
+    want = [zlib.crc32(r.tobytes()) for r in tile.cpu().numpy()]
+    z = cm._zero_crc(n)
+    frag = cm._on("frag", 0, dev)
+    tails = cm._on("tails", n // cm.BLOCK, dev)
+    out = torch.empty(rows, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"crc variant {name}: nvcc failed\n{log}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        lib = ctypes.CDLL(so)
+        lib.qz_crc32_rows.restype = ci
+        lib.qz_crc32_rows.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+
+        def run(lib=lib):
+            rc = lib.qz_crc32_rows(
+                tile.data_ptr(), out.data_ptr(), frag.data_ptr(),
+                tails.data_ptr(), rows, n,
+                z - (1 << 32) if z >= 1 << 31 else z, stream)
+            check(rc == 0, f"crc variant: cudaError {rc}")
+            return out
+        run()
+        check(out.tolist() == want, f"crc variant {name} differs from "
+              f"zlib.crc32")
+        ms = device_ms(run, 50, "crc_kernel")
+        print(f"crc variant {name}: equal to zlib.crc32, registers {regs} "
+              f"(the byte-load and the vector kernel), device time "
+              f"(profiler) {ms:.4f} ms at ({rows}, {n})")
+
+
+PAIR_LINES = {
+    "lz4_resolve_refs": re.compile(
+        r"^kernel lz4_resolve_refs \((\d+), (\d+)\), \d+ rounds: device "
+        r"time \(profiler\) ([0-9.]+) ms"),
+    "crc32_rows": re.compile(
+        r"^kernel crc32_rows \((\d+), (\d+)\): equal to zlib\.crc32; "
+        r"device time \(profiler\) ([0-9.]+) ms"),
+}
+
+
+def pair_report(runs) -> dict:
+    """``--pair LABEL=LOG ...``: the device times of the kernels in
+    PAIR_LINES from the logs of several ``chip_smoke.py`` runs (of this
+    tree and of another, in one call: parent, change, change, parent),
+    each beside its bound from the run's ``kernels`` line and its share of
+    it, and the range of each label's runs. Reads only the logs."""
+    out = {}
+    for arg in runs:
+        label, path = arg.split("=", 1)
+        with open(path, errors="replace") as f:
+            lines = f.read().splitlines()
+        bounds = {}
+        for ln in lines:
+            if ln.startswith('{"kernels"'):
+                bounds = {k["name"]: k["bound_ms"]
+                          for k in json.loads(ln)["kernels"]}
+        card = next((ln[len("env: nvidia-smi "):] for ln in lines
+                     if ln.startswith("env: nvidia-smi ")), "not found")
+        for name, pat in PAIR_LINES.items():
+            got = next((m for m in map(pat.match, lines) if m), None)
+            check(got is not None and name in bounds,
+                  f"{path}: no {name} line or bound")
+            ms, bound = float(got.group(3)), bounds[name]
+            out.setdefault(name, []).append(
+                {"label": label, "log": path, "card": card,
+                 "shape": [int(got.group(1)), int(got.group(2))],
+                 "device_ms": ms, "bound_ms": bound,
+                 "share_of_bound": bound / ms})
+            print(f"pair {name} {label} ({path}, {card}): {ms:.4f} ms of "
+                  f"device time at {got.group(1)} x {got.group(2)}, bound "
+                  f"{bound:.4f} ms, {100 * bound / ms:.1f} % of it")
+    for name, rows in out.items():
+        for label in dict.fromkeys(r["label"] for r in rows):
+            ms = [r["device_ms"] for r in rows if r["label"] == label]
+            print(f"pair {name} {label}: {min(ms):.4f}-{max(ms):.4f} ms over "
+                  f"{len(ms)} runs")
+    print(json.dumps({"pair": out}))
+    return out
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--host-cost"]:
         host_cost_only()
+    elif sys.argv[1:2] == ["--pair"]:
+        pair_report(sys.argv[2:])
+    elif sys.argv[1:] == ["--crc-variants"]:
+        crc_variants()
     else:
         main()

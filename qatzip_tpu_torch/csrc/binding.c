@@ -74,7 +74,8 @@ ENTRY(sublane_gather, "pppiip", P(0), P(1), P(2), I(3), I(4), P(5))
 ENTRY(roll_sum, "ppipip", P(0), P(1), I(2), P(3), I(4), P(5))
 ENTRY(bitonic128, "ppppip", P(0), P(1), P(2), P(3), I(4), P(5))
 ENTRY(lz4_resolve_refs, "pppiiip", P(0), P(1), P(2), I(3), I(4), I(5), P(6))
-ENTRY(crc32_rows, "ppiiip", P(0), P(1), I(2), I(3), I(4), P(5))
+ENTRY(crc32_rows, "ppppiiip", P(0), P(1), P(2), P(3), I(4), I(5), I(6),
+      P(7))
 
 #define METHOD(name) \
   {#name, (PyCFunction)(void (*)(void))py_##name, METH_FASTCALL, NULL}

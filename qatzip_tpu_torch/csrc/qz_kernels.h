@@ -41,7 +41,8 @@ int qz_bitonic128(const void* keys, const void* vals, void* kout, void* vout,
                   int rows, void* stream);
 int qz_lz4_resolve_refs(void* ref, void* out, void* unresolved, int rows,
                         int n, int max_rounds, void* stream);
-int qz_crc32_rows(const void* data, void* out, int rows, int n, int zero_crc,
+int qz_crc32_rows(const void* data, void* out, const void* frag,
+                  const void* tails, int rows, int n, int zero_crc,
                   void* stream);
 const char* qz_cuda_error_string(int code);
 

@@ -8,12 +8,14 @@ length n the linear part L is an (8n, 32) bit matrix V, so
     counts[B, 32] = bits[B, 8n] @ V[8n, 32]
     crc[B]        = crc(0^n) ^ packbits(counts & 1)
 
-On the H100 it is no matrix product: the hand kernel ``crc32_rows``
-(``csrc/crc32_rows.cu``) reads each byte once, takes each 256-byte
-segment's linear part with slicing tables, and folds the segments with
-GF(2) shifts (zlib's ``crc32_combine``). :func:`crc32_batch_ref`, the
-plain version, is the JAX formulation in torch (float32, exact while the
-counts stay <= 2^24, so for n <= 2 MiB).
+On the H100 the hand kernel ``crc32_rows`` (``csrc/crc32_rows.cu``) runs
+that product on the binary tensor cores (mma m16n8k256 .b1, AND and
+popcount), reading each byte once: 16 rows and a BLOCK-byte block a CTA,
+with V of one block (the same for every block) in the lane layout of
+:func:`mma_fragments`, and each block's value moved to the row's end by
+a GF(2) shift (zlib's ``crc32_combine``) from :func:`_tails`.
+:func:`crc32_batch_ref`, the plain version, is the JAX formulation in
+torch (float32, exact while the counts stay <= 2^24, so for n <= 2 MiB).
 
 Rows shorter than n (zero-padded) get the crc of the padded row: the
 caller takes the host crc for those.
@@ -21,6 +23,7 @@ caller takes the host crc for those.
 
 from __future__ import annotations
 
+import functools
 import threading
 import zlib
 from typing import Dict, Tuple
@@ -35,7 +38,13 @@ _CRC_TABLE = None
 _v_cache: Dict[int, np.ndarray] = {}
 _v_dev_cache: Dict[Tuple[int, str], torch.Tensor] = {}
 _zero_crc_cache: Dict[int, int] = {}
+_dev_cache: Dict[Tuple[str, int, str], torch.Tensor] = {}
 _lock = threading.Lock()
+
+#: bytes of each row a CTA of the kernel takes (csrc/crc32_rows.cu kBlock:
+#: 4 warps of four 128-byte steps)
+BLOCK = 2048
+_POLY = 0xEDB88320
 
 
 def _crc_table() -> np.ndarray:
@@ -100,6 +109,74 @@ def _v_on(n: int, device: torch.device) -> torch.Tensor:
     return got
 
 
+def multmodp(a: int, b: int) -> int:
+    """a * b mod P in zlib's reflected representation (bit 31 is x^0),
+    as the kernel's ``multmodp`` computes it."""
+    p = 0
+    for i in range(31, -1, -1):
+        if (a >> i) & 1:
+            p ^= b
+        b = (b >> 1) ^ (_POLY if b & 1 else 0)
+    return p
+
+
+def x_pow(e: int) -> int:
+    """x^e mod P (reflected), by squaring from x^1."""
+    r, sq = 1 << 31, 1 << 30
+    while e:
+        if e & 1:
+            r = multmodp(r, sq)
+        sq = multmodp(sq, sq)
+        e >>= 1
+    return r
+
+
+@functools.lru_cache(maxsize=None)
+def mma_fragments() -> np.ndarray:
+    """V of one BLOCK-byte block as the kernel's lanes load it, uint32
+    (BLOCK / 128 steps, 32 lanes, 32 words): word (ks * 4 + j) * 2 + r of
+    lane 4 g + q at step s holds, at bit i, bit 8 j + g of L(bit i % 8 of
+    byte 128 s + 32 q + 8 ks + 4 r + i // 8) over the block; the mma
+    pairs it with bit i of that lane's A word of the same bytes."""
+    v = _build_v(BLOCK).reshape(BLOCK, 8)
+    s, lane, ks, j, r, i = np.meshgrid(
+        np.arange(BLOCK // 128), np.arange(32), np.arange(4), np.arange(4),
+        np.arange(2), np.arange(32), indexing="ij")
+    g, q = lane >> 2, lane & 3
+    byte = 128 * s + 32 * q + 8 * ks + 4 * r + i // 8
+    bit = (v[byte, i % 8] >> (8 * j + g).astype(np.uint32)) & 1
+    words = (bit.astype(np.uint64) << i.astype(np.uint64)).sum(-1)
+    out = words.astype(np.uint32).reshape(BLOCK // 128, 32, 32)
+    out.setflags(write=False)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tails(blocks: int) -> np.ndarray:
+    """x^(8 BLOCK m) for m < ``blocks``, uint32: the shift that moves a
+    block's value past the m blocks after it to its row's end."""
+    step, cur = x_pow(8 * BLOCK), 1 << 31
+    out = np.zeros(blocks, np.uint32)
+    for m in range(blocks):
+        out[m] = cur
+        cur = multmodp(cur, step)
+    out.setflags(write=False)
+    return out
+
+
+def _on(what: str, key: int, device: torch.device) -> torch.Tensor:
+    """mma_fragments() (``what`` "frag") or _tails(key) ("tails") as an
+    int32 tensor on ``device``, kept per device."""
+    ck = (what, key, str(device))
+    got = _dev_cache.get(ck)
+    if got is None:
+        host = mma_fragments() if what == "frag" else _tails(key)
+        got = torch.from_numpy(host.view(np.int32).copy()).to(device)
+        with _lock:
+            _dev_cache[ck] = got
+    return got
+
+
 def _check(data: torch.Tensor, n: int) -> int:
     if data.dim() != 2 or data.shape[1] != n:
         raise ValueError(f"data must be (B, {n}), got {tuple(data.shape)}")
@@ -136,11 +213,14 @@ def crc32_batch_device(data: torch.Tensor, *, n: int) -> torch.Tensor:
     if dev < 0:
         return crc32_batch_ref(data, n=n)
     b = data.shape[0]
-    out = torch.empty((b,), dtype=torch.int32, device=data.device)
+    out = torch.empty((b,), dtype=torch.int64, device=data.device)
     if b:
         z = _zero_crc(n)
         k = cp._ext or cp.kernels()
-        k.crc32_rows(data.data_ptr(), out.data_ptr(), b, n,
-                     z - (1 << 32) if z >= 1 << 31 else z, k.stream(dev))
+        k.crc32_rows(data.data_ptr(), out.data_ptr(),
+                     _on("frag", 0, data.device).data_ptr(),
+                     _on("tails", -(-n // BLOCK), data.device).data_ptr(),
+                     b, n, z - (1 << 32) if z >= 1 << 31 else z,
+                     k.stream(dev))
         LAUNCHES["crc32_rows"] += 1
-    return out.to(torch.int64) & 0xFFFFFFFF
+    return out

@@ -9,9 +9,11 @@ decode splits it in two:
     byte, stored as ``-(byte + 1)``, or the earlier output index that
     position ``i`` copies;
   * the device resolves the copy chains: :func:`resolve_refs`, the hand
-    kernel ``lz4_resolve_refs`` (``csrc/lz4_resolve.cu``), with
-    :func:`resolve_refs_ref` its plain version, the JAX function's
-    synchronous pointer-doubling rounds.
+    kernel ``lz4_resolve_refs`` (``csrc/lz4_resolve.cu``: rows up to
+    65536 wide in shared memory, front to back in chunks, or in the JAX
+    rounds when the rounds are too few; wider rows in place in device
+    memory), with :func:`resolve_refs_ref` its plain version, the JAX
+    function's synchronous pointer-doubling rounds.
 
 The plane costs 4 bytes a decoded byte on the way to the device. Which
 leg a decode takes is ``CudaEngine.decodes_on_device``'s choice.
@@ -56,15 +58,21 @@ def resolve_refs(ref: torch.Tensor, max_rounds: int):
       ref: (B, n) int32; ``ref[b, i] < 0`` is the literal ``-(byte + 1)``,
            ``ref[b, i] >= 0`` the output index position i copies (a valid
            plane's indices are all below i, so ``(n - 1).bit_length()``
-           doubling rounds resolve it). Jumped in place: on return it
-           holds the plane the rounds left.
+           doubling rounds resolve it). Its content on return is not
+           defined: the plain version leaves the last round's plane, the
+           kernel the plane as it was or (wide rows, and rows with a
+           forward or self reference) jumped in place.
       max_rounds: the most rounds to run.
     Returns:
       (bytes (B, n) uint8, unresolved: a bool scalar tensor, True when an
-      entry is still a reference). Where the plain version resolves, the
-      kernel gives the same bytes; it jumps in place and may resolve in
-      fewer rounds, so with too few rounds it can resolve where the plain
-      version does not.
+      entry is still a reference). Up to n = 65536 the kernel gives the
+      plain version's flag for any plane and its byte at every entry that
+      resolved; with fewer than max((n - 1).bit_length(),
+      (min(n, 16384) - 1).bit_length() + 1) rounds (the decode gives more)
+      it runs the plain version's rounds themselves (every byte the same
+      unless the plane held an index past the row). Wider rows jump in place: where the plain version resolves
+      they give its bytes, and with too few rounds they may resolve where
+      it does not.
     """
     if ref.dim() != 2:
         raise ValueError(f"ref must be (B, n), got {tuple(ref.shape)}")

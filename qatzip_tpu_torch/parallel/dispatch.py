@@ -214,15 +214,14 @@ class CudaEngine:
         pool.
 
         On a CUDA device they do: on an NVIDIA H100 80GB HBM3 at 700.00 W
-        with 8 host cores, the kernel ``crc32_rows`` took 0.021 ms of
-        device time for a tile of 256 x 64 KiB (0.029-0.059 ms with its
-        wrapper's conversion), where the host crc32 of the same rows on
-        the host pool took 11.0-11.9 ms, in each of two chip_smoke.py
-        runs; a 64 MiB request's warm GB/s with either crc stayed within
-        its run-to-run noise (token path 0.1158 host against 0.1194
-        device, dynamic device pack 0.2237 against 0.2078, medians of
-        four turns each; PERF.md). On the CPU the host takes every crc,
-        the JAX package's default. The bytes are the same either way."""
+        with 8 host cores, the kernel ``crc32_rows`` took 0.0126 ms of
+        device time for a tile of 256 x 64 KiB (0.0161-0.0238 ms with its
+        wrapper), where the host crc32 of the same rows on the host pool
+        took 14.5-16.3 ms, in two chip_smoke.py runs of one call (PERF.md
+        section 6); a 64 MiB request's warm GB/s
+        with either crc stayed within its run-to-run noise (PERF.md). On
+        the CPU the host takes every crc, the JAX package's default. The
+        bytes are the same either way."""
         return self.device.type == "cuda"
 
     def decodes_on_device(self) -> bool:

@@ -33,14 +33,17 @@ from qatzip_tpu_torch import native, postproc
 from qatzip_tpu_torch.cli import aqzip, qzip, qzstd
 
 from tests.corpus import make_corpus
+from tests.reference_native import require_reference_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _return_freed_memory():
-    """Give what this module held back to the system when it ends (see
-    test_torch_session.py)."""
+    """Load the JAX package's native library first (the reference;
+    tests/reference_native.py), and give what this module held back to the
+    system when it ends (see test_torch_session.py)."""
+    require_reference_native()
     yield
     jax.clear_caches()
     gc.collect()

@@ -34,12 +34,15 @@ from qatzip_tpu_torch.constants import (QZ_FAIL, QZ_OK, QZ_OUT_OF_RANGE,
 from qatzip_tpu_torch.formats import sevenzip as sz
 
 from tests.corpus import make_corpus
+from tests.reference_native import require_reference_native
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _return_freed_memory():
-    """Give what this module held back to the system when it ends (see
-    test_torch_session.py)."""
+    """Load the JAX package's native library first (the reference;
+    tests/reference_native.py), and give what this module held back to the
+    system when it ends (see test_torch_session.py)."""
+    require_reference_native()
     yield
     jax.clear_caches()
     gc.collect()

@@ -1057,8 +1057,9 @@ def _resolve_rows(kind, n):
     ("corpus, B = 3", 65536), ("300,001 bytes", 524288)])
 def test_lz4_resolve_refs_kernel_matches_plain(card, kind, n):
     """Bytes and flag bit for bit at the decode's rounds, on chains of
-    depth n - 1, rows of literals only, 1 and 3 rows and a 300,001-byte
-    block at n = 524288; the kernel jumps the plane in place."""
+    depth n - 1, rows of literals only, 1 and 3 rows (the chunk kernel,
+    which leaves the plane as it was) and a 300,001-byte block at
+    n = 524288 (the wide kernel, which jumps the plane in place)."""
     from qatzip_tpu_torch.ops import lz4_decode as ld
     host = torch.from_numpy(lz4_ref_planes(_resolve_rows(kind, n), n))
     rounds = (n - 1).bit_length() + 1
@@ -1069,20 +1070,66 @@ def test_lz4_resolve_refs_kernel_matches_plain(card, kind, n):
     want, want_flag = ld.resolve_refs_ref(host.clone(), rounds)
     assert not bool(flag) and not bool(want_flag)
     assert torch.equal(got.cpu(), want)
-    assert (on_card < 0).all()
+    if n <= 65536:
+        assert torch.equal(on_card.cpu(), host)
+    else:
+        assert (on_card < 0).all()
 
 
 @pytest.mark.parametrize("rounds", [0, 1, 3, 8])
 def test_lz4_resolve_refs_kernel_too_few_rounds(card, rounds):
-    """With too few rounds the kernel runs at most ``rounds`` passes over
-    a row, jumping in place, so every entry is at least as far along its
-    chain as after the plain version's synchronous rounds: each entry the
-    plain version resolved the kernel resolved to the same literal, and
-    where the plain version resolves every entry, the kernel gives its
-    bytes. The kernel may resolve where the plain version does not."""
+    """With too few rounds the shared-memory kernel (n = 65536) runs the
+    plain version's synchronous rounds: the same flag and the same bytes
+    (a valid plane holds no index past the row), in at most ``rounds``
+    rounds."""
     from qatzip_tpu_torch.ops import lz4_decode as ld
     host = torch.from_numpy(lz4_ref_planes(_resolve_rows("corpus, B = 3",
                                                          65536), 65536))
+    want, want_flag = ld.resolve_refs_ref(host.clone(), rounds)
+    got, flag = ld.resolve_refs(host.to(card), rounds)
+    assert bool(flag) == bool(want_flag)
+    assert torch.equal(got.cpu(), want)
+    if rounds == 0:
+        assert bool(flag)
+    print(f"rounds {rounds}: unresolved {bool(flag)}")
+
+
+@pytest.mark.parametrize("n", [4, 32, 2048, 16384, 32768, 65536])
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_lz4_resolve_refs_kernel_at_the_jax_rounds(card, n, extra):
+    """At (n - 1).bit_length() rounds, the fewest with which the plain
+    version resolves any valid row, one fewer and one more: a chain of
+    depth n - 1 ([lit, 0, 1, ...]) and b"A" * n, bytes and flag bit for
+    bit. Rows within one chunk of 16384 take the shared-memory rounds
+    there (the chunks would need one pass more), wider rows the chunks."""
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    rounds = max((n - 1).bit_length() + extra, 0)
+    chain = np.arange(-1, n - 1, dtype=np.int32)[None, :]
+    chain[0, 0] = -1 - ord("A")
+    host = torch.from_numpy(np.concatenate(
+        [chain, lz4_ref_planes([b"A" * n], n)]))
+    want, want_flag = ld.resolve_refs_ref(host.clone(), rounds)
+    got, flag = ld.resolve_refs(host.to(card), rounds)
+    assert bool(flag) == bool(want_flag)
+    assert torch.equal(got.cpu(), want)
+    if extra >= 0:
+        assert not bool(flag)
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 3, 8])
+def test_lz4_resolve_refs_wide_kernel_too_few_rounds(card, rounds):
+    """With too few rounds the wide kernel (n = 131072) runs at most
+    ``rounds`` passes, jumping in place, so every entry is at least as far
+    along its chain as after the plain version's rounds: each entry the
+    plain version resolved holds the same literal, and where the plain
+    version resolves every entry the kernel gives its bytes. It may
+    resolve where the plain version does not."""
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    from corpus import make_corpus
+    n = 131072
+    c = make_corpus()
+    host = torch.from_numpy(lz4_ref_planes(
+        [(c["text"] * 2)[:n], b"A" * 100000], n))
     plain_plane = host.clone()
     want, want_flag = ld.resolve_refs_ref(plain_plane, rounds)
     plane = host.to(card)
@@ -1095,8 +1142,48 @@ def test_lz4_resolve_refs_kernel_too_few_rounds(card, rounds):
     if rounds == 0:
         assert bool(flag) and bool(want_flag)
         assert torch.equal(plane, host)
-    print(f"rounds {rounds}: plain version unresolved {bool(want_flag)}, "
-          f"kernel unresolved {bool(flag)}")
+
+
+def _odd_plane(case, n):
+    """A plane with entries no LZ4 parse makes: forward references (to a
+    resolving entry and a two-cycle), a self reference, or indices past
+    the row (the JAX function clips them), over a valid corpus plane."""
+    from corpus import make_corpus
+    c = make_corpus()
+    ref = lz4_ref_planes([c["text"][:n], b"B" * n, c["json"][:n]], n)
+    if case == "forward and self":
+        ref[0, 100] = n - 5
+        ref[1, 777] = 777
+        ref[2, 3], ref[2, 4] = 4, 3
+    elif case == "forward only":
+        ref[0, 100] = n - 5
+        ref[2, 40] = 41
+    else:
+        ref[0, 50] = n + 1000
+        ref[1, 0] = 1 << 30
+    return torch.from_numpy(ref)
+
+
+@pytest.mark.parametrize("n", [65536, 131072])
+@pytest.mark.parametrize("case", ["forward and self", "forward only",
+                                  "past the row"])
+def test_lz4_resolve_refs_kernel_odd_references(card, case, n):
+    """Forward and self references and indices past the row: the flag of
+    the plain version (the JAX function's rounds) at the decode's rounds,
+    and its bytes at every entry it resolved (every byte where every
+    entry resolves)."""
+    from qatzip_tpu_torch.ops import lz4_decode as ld
+    host = _odd_plane(case, n)
+    rounds = (n - 1).bit_length() + 1
+    plain_plane = host.clone()
+    want, want_flag = ld.resolve_refs_ref(plain_plane, rounds)
+    got, flag = ld.resolve_refs(host.to(card), rounds)
+    got = got.cpu()
+    assert bool(flag) == bool(want_flag) == (case == "forward and self")
+    done = plain_plane < 0
+    assert torch.equal(got[done], want[done])
+    if case != "forward and self":
+        assert torch.equal(got, want)
 
 
 def test_lz4_device_decode_leg_on_card(card, monkeypatch):
@@ -1122,12 +1209,17 @@ def test_lz4_device_decode_leg_on_card(card, monkeypatch):
 
 @pytest.mark.parametrize("kind,n", [
     ("random", 65536), ("zero", 65536), ("ff", 65536), ("random", 2048),
-    ("random", 70000), ("random", 1000), ("unaligned", 4096)])
+    ("random", 8192), ("random", 131072), ("random", 300001),
+    ("random", 70000), ("random", 1000), ("random", 65544),
+    ("unaligned", 4096), ("unaligned", 65536), ("random", 2049),
+    ("random", 16)])
 def test_crc32_rows_kernel_matches_plain_and_zlib(card, kind, n):
-    """Every row's crc equals the plain version's and zlib's: random,
-    zero and 0xFF rows, a row of two 64 KiB blocks (the front one mostly
-    padding), n not a multiple of 16 and rows off their 16-byte alignment
-    (the byte path)."""
+    """Every row's crc equals the plain version's and zlib's, for 5 rows
+    (a group of 16 rows mostly empty): random, zero and 0xFF rows; rows
+    shorter than a 2 KiB block (1000, 16); one, four, 32, 64 and 147
+    blocks (2048, 8192, 65536, 131072, 300001); a front block mostly
+    padding (2049, 70000, 65544); n not a multiple of 16 and rows off
+    their 16-byte alignment (the byte loads)."""
     from qatzip_tpu_torch.ops import crc32_mxu as cm
     rng = np.random.default_rng(n)
     data = rng.integers(0, 256, (5, n + 1), dtype=np.uint8)
@@ -1145,6 +1237,23 @@ def test_crc32_rows_kernel_matches_plain_and_zlib(card, kind, n):
     assert got.dtype == torch.int64
     assert torch.equal(got.cpu(), cm.crc32_batch_ref(host, n=n))
     assert got.tolist() == [zlib.crc32(r.numpy().tobytes()) for r in host]
+
+
+@pytest.mark.parametrize("b", [1, 3, 256, 1024])
+def test_crc32_rows_kernel_batch_sizes(card, b):
+    """B = 1, 3, 256 and 1024 rows of 64 KiB: every crc equals the plain
+    version's and zlib's, and a second launch on the same rows, right
+    after the first, gives the same crcs (a launch leaves no state)."""
+    from qatzip_tpu_torch.ops import crc32_mxu as cm
+    n = 65536
+    rng = np.random.default_rng(b)
+    host = torch.from_numpy(rng.integers(0, 256, (b, n), dtype=np.uint8))
+    rows = host.to(card)
+    first = cm.crc32_batch_device(rows, n=n)
+    second = cm.crc32_batch_device(rows, n=n)
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), cm.crc32_batch_ref(rows, n=n).cpu())
+    assert first.tolist() == [zlib.crc32(r.numpy().tobytes()) for r in host]
 
 
 def test_device_crc_on_the_dynamic_device_pack(card, monkeypatch):

@@ -56,6 +56,7 @@ from qatzip_tpu_torch.utils import debug
 from qatzip_tpu_torch.utils import trace
 
 from tests.corpus import make_corpus
+from tests.reference_native import require_reference_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -383,10 +384,27 @@ def test_new_modules_import_without_jax():
 
 @pytest.fixture(scope="module", autouse=True)
 def _return_freed_memory():
-    """Give what this module held back to the system when it ends (the
-    test runner keeps each worker for many files; JAX keeps every compiled
-    program, glibc freed pages)."""
+    """Load the JAX package's native library first (the reference;
+    tests/reference_native.py), and give what this module held back to the
+    system when it ends (the test runner keeps each worker for many files;
+    JAX keeps every compiled program, glibc freed pages)."""
+    require_reference_native()
     yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def test_reference_native_reloads_a_missing_library(monkeypatch):
+    """The module fixtures' guard: a worker whose JAX-package library did
+    not load (lib None) loads it again; if it still cannot, the guard
+    fails with a message that names the build race."""
+    from qatzip_tpu import native as jnative
+    monkeypatch.setattr(jnative, "lib", None)
+    require_reference_native()
+    assert jnative.lib is not None
+    assert jnative.lib.crc32(b"abc") == zlib.crc32(b"abc")
+    monkeypatch.setattr(jnative, "lib", None)
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    with pytest.raises(AssertionError, match="build race"):
+        require_reference_native(tries=2, wait_s=0.0)

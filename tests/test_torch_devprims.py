@@ -308,7 +308,8 @@ STUB(qz_bitonic128, const void* a, const void* b, void* c, void* d, int e,
      void* s)
 STUB(qz_lz4_resolve_refs, void* a, void* b, void* c, int d, int e, int f,
      void* s)
-STUB(qz_crc32_rows, const void* a, void* b, int c, int d, int e, void* s)
+STUB(qz_crc32_rows, const void* a, void* b, const void* c, const void* d,
+     int e, int f, int g, void* s)
 int qz_sublane_gather(const void* x, const void* idx, void* out, int log_r,
                       int log_c, void* s) {
   seen[0] = (intptr_t)x; seen[1] = (intptr_t)idx; seen[2] = (intptr_t)out;

@@ -44,14 +44,17 @@ from qatzip_tpu_torch.constants import (DataFormat, HuffmanHdr, QZ_DATA_ERROR,
 from qatzip_tpu_torch.parallel.dispatch import DEV_MAX, CudaEngine
 
 from tests.corpus import make_corpus
+from tests.reference_native import require_reference_native
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _return_freed_memory():
-    """Give what this module held back to the system when it ends: the
-    test runner keeps each worker process for many files, JAX keeps every
-    compiled program, and glibc keeps freed pages (a file's several GB
-    would pile up)."""
+    """Load the JAX package's native library first (the reference;
+    tests/reference_native.py), and give what this module held back to the
+    system when it ends: the test runner keeps each worker process for
+    many files, JAX keeps every compiled program, and glibc keeps freed
+    pages (a file's several GB would pile up)."""
+    require_reference_native()
     yield
     jax.clear_caches()
     gc.collect()
