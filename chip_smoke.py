@@ -67,7 +67,7 @@ exits non-zero without the final line:
      part by part beside the ctypes route the kernels took before,
      torch.gather and torch.cuda._sleep(0) (``sublane_breakdown``);
   4. the device time of the tokenizer layer on the full tiles, then the
-     paths, each a 64 MiB request through QzSession(device="cuda") with
+     paths, each a 64 MiB request through QzSession(device="cuda:0") with
      the launch counts set to 0 just before and read just after: the
      dynamic and the static full-device pack (the engine's own choice for
      dynamic and static sessions on the card), the token path (the engine
@@ -101,7 +101,19 @@ exits non-zero without the final line:
      qz_decompress_crc64 back); and the CLIs as programs with no --device
      (qzip -k, -d, -A lz4 and back, -O 7z of a three-file tree and back,
      qzstd and back, aqzip and back; each a new process that reports its
-     launch counts, each round trip the input again). Before those: the
+     launch counts, each round trip the input again). Then the mesh phase
+     (``mesh_paths``): the engine over several devices (every visible
+     card; on a one-card machine the card twice, then three times) on the
+     same 64 MiB request, on the main path, the static device pack, the
+     token path and the LZ4 device pack, launch counts zeroed before and
+     read after each, the bytes equal to the one-card engine's, decoded by
+     stock zlib or the session, GB/s and peak device memory beside the
+     one-card figures, and both in turns on the first mesh;
+     ``dryrun_multichip(2)`` and ``entry()`` on the
+     card; ``python -m qatzip_tpu_torch.tools.distrun --procs 2 --engine
+     device --device cuda`` as a program (its ``ok`` line required); and a
+     line saying how many distinct cards the mesh had and what went
+     unverified for want of a second. Before those: the
      LZ4 frame decoded on the host leg and on the device leg (each held),
      the token path and the main path with the device CRC held, and one
      compress under ``qz_trace`` (``decode_crc_paths``);
@@ -166,6 +178,9 @@ HOME_PATH = {"lz4_pack_rows": "lz4-device-pack",
 SPLIT_HW = 262144
 # the paths that search whole 64 KiB rows (the full-row search)
 FULL_ROW_PATHS = ("lz4-device-pack", "level6-dynamic-device-pack")
+# the paths the mesh phase drives over several devices
+MESH_PATHS = ("dynamic-device-pack", "static-device-pack", "token",
+              "lz4-device-pack")
 
 
 def check(cond, msg: str) -> None:
@@ -233,10 +248,14 @@ def device_ms(fn, reps: int, symbol: str = "") -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and symbol in e.key)
         if us > 0 or not symbol:
-            break
-    check(us > 0 or not symbol, f"the profiler saw no kernel named "
-          f"*{symbol}*")
-    return us / reps / 1e3
+            return us / reps / 1e3
+    # and once three times over in one process: time the calls with CUDA
+    # events instead, which also count the gaps between launches (the
+    # caller has checked the kernel's result already)
+    ms = event_ms(fn, reps)
+    print(f"device time: the profiler saw no kernel named *{symbol}* in "
+          f"three profiles; CUDA events instead: {ms:.4f} ms")
+    return ms
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -1987,6 +2006,7 @@ def main() -> None:
     chunks = [data[o:o + n] for o in range(0, len(data), n)]
     from torch.profiler import ProfilerActivity, profile
     launches_by_path = {}
+    peak_by_path = {}
     warm_by_path = {}
     ratio_by_path = {}
     outs_by_path = {}
@@ -2046,7 +2066,9 @@ def main() -> None:
 
     for name, kind, level, route, kernels in PATHS:
         set_route(route)
-        sess = session(kind, level, "cuda")
+        # one card, whatever the machine has (the mesh phase deals over
+        # several and is held to these bytes)
+        sess = session(kind, level, "cuda:0")
         torch.cuda.reset_peak_memory_stats()
         cuda_pack.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2065,6 +2087,7 @@ def main() -> None:
         check(out2 == out, f"{name}: a second compress gave other bytes")
         outs_by_path[name] = out
         peak = torch.cuda.max_memory_allocated()
+        peak_by_path[name] = peak
         warm_by_path[name] = len(data) / warm_s / 1e9
         ratio_by_path[name] = len(data) / len(out)
         vs = (f", vs zlib level 1 {zl1 / len(out):.4f}"
@@ -2178,6 +2201,8 @@ def main() -> None:
           f"{ratio_by_path['lz4-token']:.4f} vs device pack "
           f"{ratio_by_path['lz4-device-pack']:.4f}; the engine on the card "
           f"takes the {'device pack' if pick else 'token path'}")
+    # the one-card outputs the mesh phase is held to
+    mesh_want = {name: outs_by_path[name] for name in MESH_PATHS}
     decode_crc_paths(qz, cuda_pack, dispatch, data, outs_by_path,
                      warm_by_path, launches_by_path, set_route)
     del outs_by_path
@@ -2256,6 +2281,9 @@ def main() -> None:
     session_paths(qz, cuda_pack, dispatch, data, launches_by_path,
                   {"deflate": PATHS[2][4], "lz4": PATHS[4][4],
                    "lz4s": PATHS[5][4]})
+    mesh_paths(qz, cuda_pack, data, len(chunks), mesh_want, warm_by_path,
+               peak_by_path, launches_by_path, session, decodes, set_route)
+    del mesh_want
 
     # -- 5. CPU and CUDA agree ---------------------------------------------------
     head = data[:1 << 20]
@@ -2784,6 +2812,157 @@ def session_paths(qz, cuda_pack, dispatch, data: bytes, launches_by_path,
     print(f"path cli: every tool round trip gave the input back (the "
           f"libzstd.so.1 the native library links, version "
           f"{qz.native.get_lib().zstd_version}); launches {cli_launches}")
+
+
+def dealt_tiles(rows: int, shares: int, tile_b: int) -> int:
+    """The tiles an engine dispatches for ``rows`` rows dealt in
+    contiguous blocks over ``shares`` devices, ``tile_b`` rows a tile."""
+    cuts = [d * rows // shares for d in range(shares + 1)]
+    return sum(-(-(hi - lo) // tile_b) for lo, hi in zip(cuts, cuts[1:]))
+
+
+def mesh_paths(qz, cuda_pack, data: bytes, rows: int, want, warm_by_path,
+               peak_by_path, launches_by_path, session, decodes,
+               set_route) -> None:
+    """The mesh phase. (a) The engine over several devices (every visible
+    card; on a one-card machine the card twice, then three times, which
+    pads) on the 64 MiB request, on the main path, the static device
+    pack, the token path and the LZ4 device pack (``rows`` chunks),
+    launch counts zeroed before and read after each: the bytes equal the
+    one-card engine's (``want``), stock zlib or the session decodes them,
+    a second compress gives them again, every kernel of the path launched
+    once a tile of each share, as on one card once a tile; GB/s and peak
+    device memory beside the one-card figures, and for the first mesh
+    warm compresses of one card and of the mesh in turns ("turns"
+    lines). (b) ``dryrun_multichip(2)``
+    and ``entry()`` on the card. (c) ``python -m
+    qatzip_tpu_torch.tools.distrun --procs 2 --engine device --device
+    cuda`` as a program, its ``ok`` line required. (d) One line on how
+    many distinct cards the mesh had and what went unverified."""
+    import torch
+
+    from qatzip_tpu_torch.graft_entry import dryrun_multichip, entry
+    from qatzip_tpu_torch.parallel import dispatch
+    from qatzip_tpu_torch.parallel.dispatch import MeshEngine
+
+    count = torch.cuda.device_count()
+    meshes = ([[f"cuda:{i}" for i in range(count)]] if count > 1
+              else [["cuda:0"] * 2, ["cuda:0"] * 3])
+    for devs in meshes:
+        for name, kind, level, route, kernels in PATHS:
+            if name not in MESH_PATHS:
+                continue
+            set_route(route)
+            sess = session(kind, level, devs)
+            check(isinstance(sess._engine, MeshEngine) and len(
+                sess.devices) == len(devs), f"mesh {devs}: not a MeshEngine")
+            label = f"mesh-{len(devs)}x-{name}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_pack.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = sess.compress(data)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            launches = dict(cuda_pack.LAUNCHES)
+            launches_by_path[label] = launches
+            check(all(launches[k] > 0 for k in kernels),
+                  f"{label}: a kernel of the path never launched: {launches}")
+            # each kernel launches as often a tile as on one card
+            one_card = launches_by_path[name]
+            tiles = [dealt_tiles(rows, k, dispatch.TILE_B)
+                     for k in (1, len(devs))]
+            check(all(v % tiles[0] == 0 for v in one_card.values()),
+                  f"{name}: one card's launches {one_card} are not a whole "
+                  f"number a tile of {tiles[0]}")
+            exact = {k: v // tiles[0] * tiles[1] for k, v in one_card.items()}
+            check(launches == exact, f"{label}: launches {launches}, not "
+                  f"{exact} ({tiles[1]} tiles over the shares)")
+            check(out == want[name], f"{label}: the bytes differ from the "
+                  f"one-card engine's ({len(out)} against "
+                  f"{len(want[name])})")
+            shape = decodes(label, kind, sess, out)
+            t0 = time.perf_counter()
+            again = sess.compress(data)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            check(again == out, f"{label}: a second compress gave other "
+                  "bytes")
+            peak = torch.cuda.max_memory_allocated()
+            print(f"path {label}: devices {devs}, {len(data)} bytes -> "
+                  f"{len(out)} ({shape}), equal to the one-card engine's "
+                  f"bytes; compress cold {cold_s:.3f} s, warm {warm_s:.3f} s "
+                  f"= {len(data) / warm_s / 1e9:.4f} GB/s against one card's "
+                  f"{warm_by_path[name]:.4f}; peak device memory {peak} bytes "
+                  f"against one card's {peak_by_path[name]}; launches "
+                  f"{launches}")
+            del out, again
+            if devs is meshes[0]:
+                # warm compresses of one card and of the mesh in turns
+                # (one, mesh, mesh, one, twice): host times move up to 2x
+                # between runs, so only turns compare the two
+                one = session(kind, level, "cuda:0")
+                secs = {"one": [], "mesh": []}
+                for who in ("one", "mesh", "mesh", "one") * 2:
+                    s_ = one if who == "one" else sess
+                    t0 = time.perf_counter()
+                    s_.compress(data)
+                    torch.cuda.synchronize()
+                    secs[who].append(time.perf_counter() - t0)
+                med = {k: sorted(v)[len(v) // 2 - 1:len(v) // 2 + 1]
+                       for k, v in secs.items()}
+                gbps = {k: len(data) / (sum(v) / 2) / 1e9
+                        for k, v in med.items()}
+                ones = [round(x, 4) for x in secs["one"]]
+                mesh_s = [round(x, 4) for x in secs["mesh"]]
+                print(f"turns {label}: warm s in turns (one, mesh, mesh, "
+                      f"one, twice): one card {ones}, mesh {mesh_s}; median "
+                      f"GB/s one card {gbps['one']:.4f}, mesh "
+                      f"{gbps['mesh']:.4f} ({gbps['mesh'] / gbps['one']:.3f}x)")
+                del one
+            torch.cuda.empty_cache()
+    set_route(None)
+
+    t0 = time.perf_counter()
+    got = dryrun_multichip(2)
+    fn, args = entry()
+    toks, ntok = fn(*args)
+    torch.cuda.synchronize()
+    check(tuple(toks.shape) == (4, 16384) and toks.is_cuda
+          and int(ntok.min()) > 0, "entry: unexpected tokens")
+    print(f"mesh dryrun_multichip(2): {json.dumps(got)}; entry(): tokens "
+          f"{tuple(toks.shape)} on {toks.device}, ntok {ntok.tolist()}; "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "qatzip_tpu_torch.tools.distrun",
+                        "--procs", "2", "--engine", "device", "--device",
+                        "cuda", "--timeout", "300"], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=360)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"distrun: exit {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    check(line.get("ok") is True and line["procs"] == 2,
+          f"distrun: no ok line: {line}")
+    workers = [ln for ln in r.stdout.splitlines() if ln.startswith("worker")]
+    print(f"mesh distrun: two processes on the card, {wall:.2f} s wall; "
+          f"{'; '.join(workers)}; {json.dumps(line)}")
+
+    if count > 1:
+        print(f"mesh: {count} distinct cards; the shards were placed on "
+              "distinct cards and launched on them at once; distrun's "
+              "collective ran over gloo on the host, between processes "
+              "sharing the cards")
+    else:
+        print("mesh: 1 distinct card (the card repeated in each mesh); "
+              "unverified for want of a second card: peer placement of "
+              "shards on distinct cards, concurrent launches on two devices "
+              "(here two streams of one card), and a collective between two "
+              "cards (distrun's all_gather ran over gloo on the host)")
 
 
 def host_cost_only() -> None:

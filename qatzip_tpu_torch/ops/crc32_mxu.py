@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import cuda_pack as cp
-from .cuda_pack import LAUNCHES, _device, _require
+from .cuda_pack import _device, _require, count_launch
 
 _CRC_TABLE = None
 _v_cache: Dict[int, np.ndarray] = {}
@@ -222,5 +222,5 @@ def crc32_batch_device(data: torch.Tensor, *, n: int) -> torch.Tensor:
                      _on("tails", -(-n // BLOCK), data.device).data_ptr(),
                      b, n, z - (1 << 32) if z >= 1 << 31 else z,
                      k.stream(dev))
-        LAUNCHES["crc32_rows"] += 1
+        count_launch("crc32_rows")
     return out

@@ -5,7 +5,8 @@ Counterpart of ``qatzip_tpu/ops/pallas_pack.py``. Each kernel has:
   * a wrapper that checks device, dtype, shape and contiguity, launches
     the kernel on the tensors' device's current stream through the
     extension module (:func:`kernels`) for CUDA tensors, raises if the
-    launch was refused, and counts its launches in ``LAUNCHES``;
+    launch was refused, and counts its launches in ``LAUNCHES``
+    (``count_launch``);
   * a plain PyTorch version (``*_ref``) of the same function, which the
     wrapper runs for CPU tensors (and only for them) and which the chip
     check compares the kernel with.
@@ -59,9 +60,21 @@ _ext = None
 _ext_lock = threading.Lock()
 
 
+#: guards ``LAUNCHES``: a ``MeshEngine`` launches from a thread a device
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to kernel ``name``'s launch count (a wrapper calls it
+    where it launches its kernel, and nowhere else)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def kernels():
@@ -180,7 +193,7 @@ def candidate_search(key: torch.Tensor, ctx: torch.Tensor, *, probes: int,
     k = _ext or kernels()
     k.candidate_search(key.data_ptr(), ctx.data_ptr(), out.data_ptr(), rows,
                        w, pbits, ctx_words, probes, min_match, k.stream(dev))
-    LAUNCHES["candidate_search"] += 1
+    count_launch("candidate_search")
     return out
 
 
@@ -245,7 +258,7 @@ def parse_scan(is_match: torch.Tensor, ml: torch.Tensor, seg: int):
     k = _ext or kernels()
     k.parse_scan(is_match.data_ptr(), ml.data_ptr(), taken.data_ptr(),
                  lit.data_ptr(), lanes, seg, k.stream(dev))
-    LAUNCHES["parse_scan"] += 1
+    count_launch("parse_scan")
     return taken, lit
 
 
@@ -304,7 +317,7 @@ def huffman_lookup(lit_pack: torch.Tensor, dist_pack: torch.Tensor,
     k.huffman_lookup(lit_pack.data_ptr(), dist_pack.data_ptr(),
                      sym.data_ptr(), dsym.data_ptr(), lout.data_ptr(),
                      dout.data_ptr(), b, n, k.stream(dev))
-    LAUNCHES["huffman_lookup"] += 1
+    count_launch("huffman_lookup")
     return lout, dout
 
 
@@ -355,5 +368,5 @@ def symbol_histogram(sym: torch.Tensor, dsym: torch.Tensor):
     k = _ext or kernels()
     k.symbol_histogram(sym.data_ptr(), dsym.data_ptr(), hist.data_ptr(), b,
                        n, k.stream(dev))
-    LAUNCHES["symbol_histogram"] += 1
+    count_launch("symbol_histogram")
     return hist

@@ -47,8 +47,8 @@ import numpy as np
 import torch
 
 from . import cuda_pack as cp
-from .cuda_pack import (LAUNCHES, _as_i32, _device, _require, huffman_lookup,
-                        symbol_histogram)
+from .cuda_pack import (_as_i32, _device, _require, count_launch,
+                        huffman_lookup, symbol_histogram)
 from .lz77 import _analyze
 
 HDR_BITS = 3         # BFINAL + BTYPE(01), emitted as 0b010 (BFINAL=0)
@@ -358,7 +358,7 @@ def pack_rows(ml, dist, taken, lit, base, *, max_words: int, data=None,
                 lit.data_ptr(), ptr(lpack), ptr(dpack), base.data_ptr(),
                 words.data_ptr(), end.data_ptr(), b, n, max_words,
                 k.stream(dev))
-    LAUNCHES["pack_rows"] += 1
+    count_launch("pack_rows")
     return words, end
 
 

@@ -30,7 +30,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_pack as cp
-from .cuda_pack import LAUNCHES, _as_i32, _device, _require
+from .cuda_pack import LAUNCHES  # noqa: F401 (re-exported)
+from .cuda_pack import _as_i32, _device, _require, count_launch
 
 MASK32 = 0xFFFFFFFF
 WIDTH = 128                         # the roll and sort rows
@@ -92,7 +93,7 @@ def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     k = cp._ext or cp.kernels()
     k.lane_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, log_c,
                   k.stream(dev))
-    LAUNCHES["lane_gather"] += 1
+    count_launch("lane_gather")
     return out
 
 
@@ -127,7 +128,7 @@ def sublane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     k.sublane_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
                      rows.bit_length() - 1, c.bit_length() - 1,
                      k.stream(dev))
-    LAUNCHES["sublane_gather"] += 1
+    count_launch("sublane_gather")
     return out
 
 
@@ -181,7 +182,7 @@ def roll_sum(x: torch.Tensor,
     k = cp._ext or cp.kernels()
     k.roll_sum(x.data_ptr(), 0 if shifts is None else shifts.data_ptr(),
                nshift, out.data_ptr(), rows, k.stream(dev))
-    LAUNCHES["roll_sum"] += 1
+    count_launch("roll_sum")
     return out
 
 
@@ -242,5 +243,5 @@ def bitonic128(keys: torch.Tensor, vals: torch.Tensor
     k = cp._ext or cp.kernels()
     k.bitonic128(keys.data_ptr(), vals.data_ptr(), kout.data_ptr(),
                  vout.data_ptr(), rows, k.stream(dev))
-    LAUNCHES["bitonic128"] += 1
+    count_launch("bitonic128")
     return kout, vout

@@ -26,7 +26,7 @@ from typing import List, Sequence
 import torch
 
 from . import cuda_pack as cp
-from .cuda_pack import LAUNCHES, _device, _require
+from .cuda_pack import _device, _require, count_launch
 from ..constants import QZ_DATA_ERROR, QzError
 
 #: most rows a device tile holds; wider rows take fewer, so a tile's plane
@@ -88,7 +88,7 @@ def resolve_refs(ref: torch.Tensor, max_rounds: int):
     k = cp._ext or cp.kernels()
     k.lz4_resolve_refs(ref.data_ptr(), out.data_ptr(), flags.data_ptr(), b,
                        n, max(int(max_rounds), 0), k.stream(dev))
-    LAUNCHES["lz4_resolve_refs"] += 1
+    count_launch("lz4_resolve_refs")
     return out, flags.bool().any()
 
 

@@ -35,7 +35,7 @@ from typing import Tuple
 import torch
 
 from . import cuda_pack as cp
-from .cuda_pack import LAUNCHES, _as_i32, _device, _require
+from .cuda_pack import _as_i32, _device, _require, count_launch
 from .lz77 import _analyze
 
 LZ4_MAX_MATCH = 273     # stored length overflow <= 254: one byte
@@ -199,7 +199,7 @@ def lz4_pack_rows(data, ml, dist, taken, lit, *, max_words: int
                     taken.data_ptr(), lit.data_ptr(), words.data_ptr(),
                     nbytes.data_ptr(), ok.data_ptr(), b, n, max_words,
                     k.stream(dev))
-    LAUNCHES["lz4_pack_rows"] += 1
+    count_launch("lz4_pack_rows")
     return words, nbytes, ok
 
 

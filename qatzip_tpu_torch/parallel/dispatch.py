@@ -43,8 +43,17 @@ choice.
 says so, else on the host pool. On ``device="cpu"`` the same code runs
 the kernels' plain versions.
 
-Not ported yet: compress-and-verify, the multi-tile scan grouping and
-the mesh.
+Over several devices (``build_engine`` of a tuple of two or more, the
+runtime's ``device="cuda"`` on a machine with several cards, or a list
+such as ``["cuda:0", "cuda:1"]``) a ``MeshEngine`` deals each request's
+rows over one ``CudaEngine`` a device (``parallel/mesh.py``): device d
+takes the d-th contiguous block of the rows, all devices at once, each
+on the route its engine picks, with the row width ``n`` and the
+tokenizer's knobs taken from the whole request. Rows are independent,
+so the engine over k devices gives the one-device engine's bytes on
+every route, for every k. One device gets a ``CudaEngine`` itself.
+
+Not ported yet: compress-and-verify and the multi-tile scan grouping.
 """
 
 from __future__ import annotations
@@ -139,13 +148,66 @@ def _tok_params(algorithm: str):
     return dict(min_match=4, max_match=32767, window=32768)
 
 
-class CudaEngine:
+class _ChunkEngine:
+    """What an engine over one device and one over several share: the
+    request's row width, and the cut of chunks over DEV_MAX into rows.
+    A subclass gives ``compress_rows``."""
+
+    def compress_chunks(self, chunks: Sequence[bytes], *, level: int,
+                        algorithm: str = "deflate",
+                        final_flags: Optional[Sequence[bool]] = None,
+                        mini_match: int = 3, huffman_static: bool = False,
+                        ) -> List[Tuple[bytes, int]]:
+        """Compress each chunk to an independent payload + its crc32, on
+        the route ``packs_on_device`` picks: a raw deflate stream, or one
+        LZ4 or LZ4s block. On the token path the deflate host packer runs
+        mode 1 (static Huffman) for static sessions, mode 0 (best of
+        stored/static/dynamic) otherwise."""
+        if algorithm not in ("deflate", "lz4", "lz4s"):
+            raise ValueError(f"unknown algorithm {algorithm}")
+        finals = (list(final_flags) if final_flags is not None
+                  else [True] * len(chunks))
+        if any(len(c) > DEV_MAX for c in chunks):
+            return self._compress_split(chunks, finals, level, algorithm,
+                                        mini_match, huffman_static)
+        return self.compress_rows(chunks, finals, _pow2_chunk_n(chunks),
+                                  level=level, algorithm=algorithm,
+                                  mini_match=mini_match,
+                                  huffman_static=huffman_static)
+
+    def _compress_split(self, chunks, finals, level: int, algorithm: str,
+                        mini_match: int, huffman_static: bool):
+        """Chunks over DEV_MAX: each deflate chunk cut into rows of at most
+        DEV_MAX bytes, the rows compressed on the session's route with
+        only the chunk's last row final, and each chunk's row payloads
+        joined. LZ4 and LZ4s chunks go to the host coder whole."""
+        if algorithm != "deflate":
+            from ..engines import host_engine
+            return host_engine.compress_chunks(
+                chunks, level=level, algorithm=algorithm, final_flags=finals,
+                mini_match=mini_match, huffman_static=huffman_static)
+        rows, row_finals, counts = [], [], []
+        for chunk, final in zip(chunks, finals):
+            pieces = [chunk[o:o + DEV_MAX]
+                      for o in range(0, len(chunk), DEV_MAX)] or [b""]
+            rows += pieces
+            row_finals += [False] * (len(pieces) - 1) + [final]
+            counts.append(len(pieces))
+        done = iter(self.compress_chunks(
+            rows, level=level, algorithm=algorithm, final_flags=row_finals,
+            mini_match=mini_match, huffman_static=huffman_static))
+        return [(b"".join(next(done)[0] for _ in range(cnt)), crc32(chunk))
+                for chunk, cnt in zip(chunks, counts)]
+
+
+class CudaEngine(_ChunkEngine):
     """Chunk-batch engine on one torch device ("cuda:i" or "cpu")."""
 
     name = "cuda"
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
+        self.devices = (self.device,)
 
     def _tokenize_tiles(self, chunks: Sequence[bytes], n: int, level: int,
                         algorithm: str = "deflate"):
@@ -263,24 +325,13 @@ class CudaEngine:
         return host_engine.decompress_chunks(payloads, expected_sizes,
                                              algorithm=algorithm)
 
-    def compress_chunks(self, chunks: Sequence[bytes], *, level: int,
-                        algorithm: str = "deflate",
-                        final_flags: Optional[Sequence[bool]] = None,
-                        mini_match: int = 3, huffman_static: bool = False,
-                        ) -> List[Tuple[bytes, int]]:
-        """Compress each chunk to an independent payload + its crc32, on
-        the route ``packs_on_device`` picks: a raw deflate stream, or one
-        LZ4 or LZ4s block. On the token path the deflate host packer runs
-        mode 1 (static Huffman) for static sessions, mode 0 (best of
-        stored/static/dynamic) otherwise."""
-        if algorithm not in ("deflate", "lz4", "lz4s"):
-            raise ValueError(f"unknown algorithm {algorithm}")
-        finals = (list(final_flags) if final_flags is not None
-                  else [True] * len(chunks))
-        if any(len(c) > DEV_MAX for c in chunks):
-            return self._compress_split(chunks, finals, level, algorithm,
-                                        mini_match, huffman_static)
-        n = _pow2_chunk_n(chunks)
+    def compress_rows(self, chunks: Sequence[bytes], finals: Sequence[bool],
+                      n: int, *, level: int, algorithm: str, mini_match: int,
+                      huffman_static: bool) -> List[Tuple[bytes, int]]:
+        """``compress_chunks`` for chunks of at most ``n`` <= DEV_MAX
+        bytes at row width ``n``, which sets the tokenizer's knobs: the
+        caller takes it from the whole request (a ``MeshEngine`` gives
+        each device's share the request's width)."""
         if self.packs_on_device(huffman_static, algorithm):
             if algorithm == "lz4":
                 return self._finish_lz4(chunks, self._fetch_lz4(
@@ -290,30 +341,6 @@ class CudaEngine:
         return self._pack(chunks, finals, 1 if huffman_static else 0,
                           self._tokenize_tiles(chunks, n, level, algorithm),
                           algorithm, mini_match)
-
-    def _compress_split(self, chunks, finals, level: int, algorithm: str,
-                        mini_match: int, huffman_static: bool):
-        """Chunks over DEV_MAX: each deflate chunk cut into rows of at most
-        DEV_MAX bytes, the rows compressed on the session's route with
-        only the chunk's last row final, and each chunk's row payloads
-        joined. LZ4 and LZ4s chunks go to the host coder whole."""
-        if algorithm != "deflate":
-            from ..engines import host_engine
-            return host_engine.compress_chunks(
-                chunks, level=level, algorithm=algorithm, final_flags=finals,
-                mini_match=mini_match, huffman_static=huffman_static)
-        rows, row_finals, counts = [], [], []
-        for chunk, final in zip(chunks, finals):
-            pieces = [chunk[o:o + DEV_MAX]
-                      for o in range(0, len(chunk), DEV_MAX)] or [b""]
-            rows += pieces
-            row_finals += [False] * (len(pieces) - 1) + [final]
-            counts.append(len(pieces))
-        done = iter(self.compress_chunks(
-            rows, level=level, algorithm=algorithm, final_flags=row_finals,
-            mini_match=mini_match, huffman_static=huffman_static))
-        return [(b"".join(next(done)[0] for _ in range(cnt)), crc32(chunk))
-                for chunk, cnt in zip(chunks, counts)]
 
     def _pack(self, chunks, finals, mode: int, tiles,
               algorithm: str = "deflate", mini_match: int = 3):
@@ -549,6 +576,77 @@ def plan_tile(hist: np.ndarray, nt: int):
     return packs, dpacks, hdrs, hbits
 
 
-def build_engine(device) -> CudaEngine:
-    """Factory used by the runtime's engine pool."""
-    return CudaEngine(device)
+class MeshEngine(_ChunkEngine):
+    """Chunk-batch engine over several torch devices (one may repeat):
+    each request's rows dealt in contiguous blocks over one ``CudaEngine``
+    a device, every device at once (``mesh.Mesh.map``), the results in
+    submission order. The routes are the ``CudaEngine``'s, by device type
+    (its predicates answer for the mesh); ``device`` is the first
+    device."""
+
+    name = "cuda-mesh"
+
+    def __init__(self, devices: Sequence[torch.device]):
+        from .mesh import Mesh
+        self.mesh = Mesh(devices)
+        self.devices = self.mesh.devices
+        self.device = self.devices[0]
+        self.engines = tuple(CudaEngine(d) for d in self.devices)
+
+    def packs_on_device(self, huffman_static: bool,
+                        algorithm: str = "deflate") -> bool:
+        return self.engines[0].packs_on_device(huffman_static, algorithm)
+
+    def crc_on_device(self) -> bool:
+        return self.engines[0].crc_on_device()
+
+    def decodes_on_device(self) -> bool:
+        return self.engines[0].decodes_on_device()
+
+    def _shares(self, count: int):
+        """Each device's engine and contiguous block [lo, hi) of ``count``
+        rows, in device order (a block may be empty)."""
+        k = len(self.engines)
+        cuts = [d * count // k for d in range(k + 1)]
+        return list(zip(self.engines, cuts, cuts[1:]))
+
+    def compress_rows(self, chunks, finals, n, *, level, algorithm,
+                      mini_match, huffman_static):
+        """Each device's block of rows through its engine's
+        ``compress_rows`` at the request's row width ``n``."""
+        def share(_dev, item):
+            eng, lo, hi = item
+            if lo == hi:
+                return []
+            return eng.compress_rows(
+                chunks[lo:hi], finals[lo:hi], n, level=level,
+                algorithm=algorithm, mini_match=mini_match,
+                huffman_static=huffman_static)
+        parts = self.mesh.map(share, self._shares(len(chunks)))
+        return [r for part in parts for r in part]
+
+    def decompress_chunks(self, payloads, expected_sizes, *, algorithm):
+        """``CudaEngine.decompress_chunks`` with the device leg's blocks
+        dealt over the devices."""
+        if not (algorithm == "lz4" and self.decodes_on_device()):
+            return self.engines[0].decompress_chunks(
+                payloads, expected_sizes, algorithm=algorithm)
+
+        def share(dev, item):
+            _eng, lo, hi = item
+            if lo == hi:
+                return []
+            return decode_blocks_device(payloads[lo:hi],
+                                        expected_sizes[lo:hi], device=dev)
+        parts = self.mesh.map(share, self._shares(len(payloads)))
+        return [r for part in parts for r in part]
+
+
+def build_engine(device):
+    """Factory used by the runtime's engine pool: a ``CudaEngine`` for one
+    device, a ``MeshEngine`` for a sequence of two or more."""
+    devs = ((device,) if isinstance(device, (str, torch.device))
+            else tuple(device))
+    if len(devs) == 1:
+        return CudaEngine(devs[0])
+    return MeshEngine(devs)

@@ -6,12 +6,19 @@ device on a machine without one gets ``QZ_NOSW_NO_HW``: the port never
 carries on in software in its place. The engine runs on the CPU only
 when the caller asks for ``device="cpu"``, and then uses the plain
 versions of the kernels.
+
+A device names one or several torch devices: ``"cuda"`` with no index is
+every visible CUDA device (the JAX runtime's ``jax.local_devices()``),
+``"cuda:i"`` one card, ``"cpu"`` the host, and a list or tuple names its
+devices in order (``["cuda:0", "cuda:1"]``; a device may repeat). The
+pool keeps one engine per tuple of devices: a ``CudaEngine`` for one
+device, a ``MeshEngine`` that deals the rows over several.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Set
+from typing import Dict, Set, Tuple
 
 import torch
 
@@ -20,31 +27,52 @@ from .constants import (QZ_DUPLICATE, QZ_NO_HW, QZ_NOSW_NO_HW, QZ_OK,
 from .utils.debug import qz_log
 
 
-def resolve_device(device) -> torch.device:
-    """The concrete torch device for ``device``; raises QZ_NOSW_NO_HW
-    for a CUDA device this machine does not have."""
+def _one_device(device, every_card: bool) -> Tuple[torch.device, ...]:
     dev = torch.device(device)
     if dev.type == "cpu":
-        return torch.device("cpu")
+        return (torch.device("cpu"),)
     if dev.type != "cuda":
         raise QzError(QZ_PARAMS, f"unsupported device {dev}")
     if not torch.cuda.is_available():
         raise QzError(QZ_NOSW_NO_HW, "no CUDA device is available; pass "
                       "device='cpu' to run the plain versions on the host")
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    if index >= torch.cuda.device_count():
-        raise QzError(QZ_NOSW_NO_HW, f"no CUDA device {index} "
-                      f"({torch.cuda.device_count()} present)")
-    return torch.device("cuda", index)
+    count = torch.cuda.device_count()
+    if dev.index is None:
+        if every_card:
+            return tuple(torch.device("cuda", i) for i in range(count))
+        return (torch.device("cuda", torch.cuda.current_device()),)
+    if dev.index >= count:
+        raise QzError(QZ_NOSW_NO_HW, f"no CUDA device {dev.index} "
+                      f"({count} present)")
+    return (torch.device("cuda", dev.index),)
+
+
+def resolve_device(device) -> Tuple[torch.device, ...]:
+    """The concrete torch devices ``device`` names, in order (see the
+    module docstring); raises QZ_NOSW_NO_HW for a CUDA device this
+    machine does not have and QZ_PARAMS for an empty list or one that
+    mixes the CPU with CUDA."""
+    if isinstance(device, (list, tuple)):
+        devs = tuple(d for one in device for d in _one_device(one, False))
+        if not devs:
+            raise QzError(QZ_PARAMS, "an empty list of devices")
+        if len({d.type for d in devs}) > 1:
+            raise QzError(QZ_PARAMS, f"devices of two kinds: {devs}")
+        return devs
+    return _one_device(device, True)
+
+
+def _key(devs: Tuple[torch.device, ...]) -> Tuple[str, ...]:
+    return tuple(str(d) for d in devs)
 
 
 class Runtime:
-    """Singleton process runtime: one engine per device."""
+    """Singleton process runtime: one engine per tuple of devices."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._engines: Dict[str, object] = {}
-        self._initialized: Set[str] = set()
+        self._engines: Dict[Tuple[str, ...], object] = {}
+        self._initialized: Set[Tuple[str, ...]] = set()
 
     def init(self, device="cuda", sw_backup: int = 1) -> int:
         """qzInit for ``device``: QZ_OK when this call brings it up,
@@ -52,28 +80,28 @@ class Runtime:
         does not have, QZ_NO_HW (``sw_backup`` set: sessions may still run
         on the CPU where the caller asks for it) or QZ_NOSW_NO_HW."""
         try:
-            dev = resolve_device(device)
+            key = _key(resolve_device(device))
         except QzError as e:
             if e.rc != QZ_NOSW_NO_HW:
                 raise
             return QZ_NO_HW if sw_backup else QZ_NOSW_NO_HW
         with self._lock:
-            if str(dev) in self._initialized:
+            if key in self._initialized:
                 return QZ_DUPLICATE
-            self._initialized.add(str(dev))
+            self._initialized.add(key)
             return QZ_OK
 
     def initialized(self, device) -> bool:
-        return str(resolve_device(device)) in self._initialized
+        return _key(resolve_device(device)) in self._initialized
 
     def get_engine(self, device):
-        dev = resolve_device(device)
+        devs = resolve_device(device)
         with self._lock:
-            eng = self._engines.get(str(dev))
+            eng = self._engines.get(_key(devs))
             if eng is None:
                 from .parallel.dispatch import build_engine
-                eng = self._engines[str(dev)] = build_engine(dev)
-                qz_log("engine up on %s", dev)
+                eng = self._engines[_key(devs)] = build_engine(devs)
+                qz_log("engine up on %s", ", ".join(_key(devs)))
             return eng
 
 

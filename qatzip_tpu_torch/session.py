@@ -4,8 +4,9 @@ Counterpart of ``qatzip_tpu/session.py`` (``QzSession_T``, the setup
 family qzSetupSession{,Deflate,LZ4,LZ4S} src/qatzip.c:1027-1202,
 qzTeardownSession / qzClose, qzCompress[Crc] and qzDecompress
 :1997-2255, :2812-2997, qzMaxCompressedLength). The session takes the
-torch device it runs on: ``"cuda"`` (the default) or ``"cpu"``, which
-runs the kernels' plain versions. An LZ4s session runs its post-process
+torch device it runs on: ``"cuda"`` (the default: every visible card),
+``"cuda:i"``, a list of devices, or ``"cpu"``, which runs the kernels'
+plain versions. An LZ4s session runs its post-process
 callback (for example ``postproc.zstd_callback``) on each compressed
 request.
 
@@ -35,10 +36,15 @@ from .runtime import get_runtime
 
 
 class QzSession:
-    """A compression session on one torch device."""
+    """A compression session on a torch device (``"cuda"``: every visible
+    card; ``"cuda:i"``, ``"cpu"``, or a list of devices: the runtime's
+    ``resolve_device``)."""
 
     def __init__(self, device="cuda"):
         self._engine = get_runtime().get_engine(device)
+        # the engine's devices (several where ``device`` names several:
+        # runtime.resolve_device); ``device`` is the first
+        self.devices = self._engine.devices
         self.device = self._engine.device
         self.state = SessionState.QZ_NONE
         self.params = None
@@ -240,7 +246,7 @@ class QzSession:
 def qz_init(sess: Optional[QzSession], sw_backup: int = 1) -> int:
     """qzInit for the session's device (the default device without one):
     QZ_OK, QZ_DUPLICATE, QZ_NO_HW or QZ_NOSW_NO_HW (``Runtime.init``)."""
-    return get_runtime().init(sess.device if sess is not None else "cuda",
+    return get_runtime().init(sess.devices if sess is not None else "cuda",
                               sw_backup)
 
 
@@ -369,7 +375,7 @@ def qz_get_status(sess: Optional[QzSession]) -> dict:
     rt = get_runtime()
     device = sess.device if sess is not None else None
     return {
-        "initialized": device is not None and rt.initialized(device),
+        "initialized": device is not None and rt.initialized(sess.devices),
         "hw_available": torch.cuda.is_available(),
         "platform": device.type if device is not None else None,
         "n_devices": torch.cuda.device_count(),

@@ -11,10 +11,14 @@ with the wrong reference. So each port test module that compares with the
 JAX package calls :func:`require_reference_native` first: it loads the
 library once more (the file is whole by then) and fails loudly if it is
 still missing.
+
+Those modules' fixtures also run torch on one intra-op thread
+(:func:`one_intra_op_thread`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 RACE = ("qatzip_tpu.native.lib is None: the JAX package's native library "
@@ -37,3 +41,17 @@ def require_reference_native(tries: int = 15, wait_s: float = 2.0) -> None:
         if native.lib is None:
             time.sleep(wait_s)
     assert native.lib is not None, RACE
+
+
+@contextlib.contextmanager
+def one_intra_op_thread():
+    """Run torch on one intra-op thread inside the block, and restore the
+    count after it: the test runner's workers share the host's cores, and
+    their intra-op pools only contend for them."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)

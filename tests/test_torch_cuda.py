@@ -1283,3 +1283,85 @@ def test_device_crc_on_the_dynamic_device_pack(card, monkeypatch):
     assert sess2.crc32 == zlib.crc32(data)
     d = zlib.decompressobj(31)
     assert d.decompress(got) == data[:65536]
+
+
+# ---------------------------------------------------------------------------
+# the engine and the mesh functions over several devices
+# ---------------------------------------------------------------------------
+
+def _mesh_request():
+    """1 MiB of the corpus and a ragged tail, in 64 KiB chunks."""
+    from corpus import make_silesia_like
+    return make_silesia_like(1) + make_silesia_like(1)[:61001]
+
+
+@pytest.mark.parametrize("kind,held", [
+    ("dynamic", None), ("lz4", None), ("static", None), ("dynamic", False)])
+def test_engine_over_two_devices_matches_one(card, monkeypatch, kind, held):
+    """The engine over ["cuda:0", "cuda:0"] (each share on its own thread
+    and stream) gives the one-card engine's bytes: the main path (the
+    dynamic device pack), the LZ4 device pack, the static device pack and
+    the token path, each launching its kernels."""
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine, MeshEngine
+    if held is not None:
+        monkeypatch.setattr(CudaEngine, "packs_on_device",
+                            lambda self, s, algorithm="deflate": held)
+    data = _mesh_request()
+    outs = []
+    for device in ("cuda:0", ["cuda:0", "cuda:0"]):
+        sess = qz.QzSession(device=device)
+        if kind == "lz4":
+            assert sess.setup_lz4() == qz.QZ_OK
+        else:
+            p = qz.SessionParamsDeflate()
+            if kind == "static":
+                p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
+            assert sess.setup_deflate(p) == qz.QZ_OK
+        cuda_pack.reset_launch_counts()
+        outs.append(sess.compress(data))
+        launched = dict(cuda_pack.LAUNCHES)
+        assert sess.decompress(outs[-1]) == data
+    assert type(sess._engine) is MeshEngine
+    assert sess.devices == (card, card)
+    assert outs[0] == outs[1]
+    want = {"dynamic": ("symbol_histogram", "huffman_lookup", "pack_rows"),
+            "lz4": ("lz4_pack_rows",), "static": ("pack_rows",)}
+    # 17 rows: one tile a share, each kernel of the path once a tile
+    for k in (("parse_scan", "crc32_rows")
+              + (want[kind] if held is None else ("candidate_search",))):
+        assert launched[k] == 2, (k, launched)
+
+
+def test_mesh_functions_on_card_match_cpu(card):
+    """The four mesh functions over ["cuda:0", "cuda:0"] give their
+    results over two CPU devices."""
+    from qatzip_tpu_torch.graft_entry import _example_batch
+    from qatzip_tpu_torch.parallel import mesh
+    from qatzip_tpu_torch.parallel.dispatch import plan_tile
+    n, b = 2048, 4
+    data, lengths = _example_batch(b, n)
+    got = {}
+    for devs in (["cpu", "cpu"], ["cuda:0", "cuda:0"]):
+        m = mesh.make_mesh(devs)
+        toks = mesh.mesh_tokenize(m, data, lengths, n=n)
+        pack = mesh.mesh_pack_device(m, data, lengths, n=n)
+        hist, *planes = mesh.mesh_analyze_hist(m, data, lengths, n=n)
+        assert all(s.device == m.devices[0] for s in planes[0].shards)
+        packs, dpacks, _hdrs, hbits = plan_tile(hist, b)
+        dyn = mesh.mesh_pack_dynamic(m, data, *planes, packs, dpacks,
+                                     hbits, n=n)
+        got[devs[0]] = [*toks, *pack, hist, *dyn]
+    assert len(got["cpu"]) == 8
+    for a, c in zip(got["cpu"], got["cuda:0"]):
+        assert np.array_equal(a, c)
+
+
+def test_dryrun_multichip_on_card(card):
+    from qatzip_tpu_torch.graft_entry import dryrun_multichip, entry
+    got = dryrun_multichip(2)
+    assert got["rows"] == 4
+    assert got["distinct"] == min(2, torch.cuda.device_count())
+    fn, args = entry()
+    toks, ntok = fn(*args)
+    assert toks.shape == (4, 16384) and toks.device == card

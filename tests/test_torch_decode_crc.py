@@ -56,7 +56,8 @@ from qatzip_tpu_torch.utils import debug
 from qatzip_tpu_torch.utils import trace
 
 from tests.corpus import make_corpus
-from tests.reference_native import require_reference_native
+from tests.reference_native import (one_intra_op_thread,
+                                     require_reference_native)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -389,7 +390,8 @@ def _return_freed_memory():
     system when it ends (the test runner keeps each worker for many files;
     JAX keeps every compiled program, glibc freed pages)."""
     require_reference_native()
-    yield
+    with one_intra_op_thread():
+        yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)

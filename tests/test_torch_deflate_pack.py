@@ -42,6 +42,8 @@ from qatzip_tpu_torch.ops import deflate_pack as dp
 from qatzip_tpu_torch.parallel.dispatch import plan_tile
 from test_torch_cuda import PACK_PLANES, _max_words, pack_args, pack_plane
 
+from tests.reference_native import one_intra_op_thread
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _return_freed_memory():
@@ -49,7 +51,8 @@ def _return_freed_memory():
     test runner keeps each worker process for many files, JAX keeps every
     compiled program, and glibc keeps freed pages (a file's several GB
     would pile up)."""
-    yield
+    with one_intra_op_thread():
+        yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)

@@ -31,6 +31,8 @@ from qatzip_tpu_torch.ops import cuda_pack
 from qatzip_tpu_torch.ops.lz77 import HASH_MUL, _hash
 from test_torch_cuda import PARSE_PLANES, k2_window, parse_plane
 
+from tests.reference_native import one_intra_op_thread
+
 # one jit for every parse test, so each (seg, nseg, b) compiles once
 _jax_parse_scan = jax.jit(_parse_scan, static_argnums=(2, 3, 4))
 
@@ -41,7 +43,8 @@ def _return_freed_memory():
     test runner keeps each worker process for many files, JAX keeps every
     compiled program, and glibc keeps freed pages (a file's several GB
     would pile up)."""
-    yield
+    with one_intra_op_thread():
+        yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)

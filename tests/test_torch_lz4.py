@@ -51,7 +51,8 @@ from qatzip_tpu_torch.sw import codec as swc
 from qatzip_tpu_torch.sw.lz4_py import lz4_decompress_block_py
 
 from tests.corpus import make_corpus, text_like
-from tests.reference_native import require_reference_native
+from tests.reference_native import (one_intra_op_thread,
+                                     require_reference_native)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,7 +63,8 @@ def _return_freed_memory():
     many files, JAX keeps every compiled program, and glibc keeps freed
     pages (a file's several GB would pile up)."""
     require_reference_native()
-    yield
+    with one_intra_op_thread():
+        yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)

@@ -34,6 +34,7 @@ from qatzip_tpu.ops import lz77 as jlz
 from qatzip_tpu_torch.ops import lz77 as tlz
 
 from tests.corpus import json_like, text_like
+from tests.reference_native import one_intra_op_thread
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -42,7 +43,8 @@ def _return_freed_memory():
     test runner keeps each worker process for many files, JAX keeps every
     compiled program, and glibc keeps freed pages (a file's several GB
     would pile up)."""
-    yield
+    with one_intra_op_thread():
+        yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)

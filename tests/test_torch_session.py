@@ -44,7 +44,8 @@ from qatzip_tpu_torch.constants import (DataFormat, HuffmanHdr, QZ_DATA_ERROR,
 from qatzip_tpu_torch.parallel.dispatch import DEV_MAX, CudaEngine
 
 from tests.corpus import make_corpus
-from tests.reference_native import require_reference_native
+from tests.reference_native import (one_intra_op_thread,
+                                     require_reference_native)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,7 +56,8 @@ def _return_freed_memory():
     many files, JAX keeps every compiled program, and glibc keeps freed
     pages (a file's several GB would pile up)."""
     require_reference_native()
-    yield
+    with one_intra_op_thread():
+        yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)

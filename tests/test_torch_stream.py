@@ -38,7 +38,8 @@ from qatzip_tpu_torch.constants import (DataFormat, Direction, MemType,
 from qatzip_tpu_torch.parallel.dispatch import CudaEngine, row_width
 
 from tests.corpus import make_corpus
-from tests.reference_native import require_reference_native
+from tests.reference_native import (one_intra_op_thread,
+                                     require_reference_native)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -47,7 +48,8 @@ def _return_freed_memory():
     tests/reference_native.py), and give what this module held back to the
     system when it ends (see test_torch_session.py)."""
     require_reference_native()
-    yield
+    with one_intra_op_thread():
+        yield
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL("libc.so.6").malloc_trim(0)
