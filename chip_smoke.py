@@ -8,7 +8,9 @@ of this tree and another, and sets the device times of
 ``lz4_resolve_refs`` and ``crc32_rows`` side by side with their bounds,
 ``pair_report``; ``python3 chip_smoke.py --crc-variants`` builds
 ``crc32_rows`` in the other CTA shapes it was chosen over and times
-them, ``crc_variants``.)
+them, ``crc_variants``; ``python3 chip_smoke.py --threads`` times
+``qztest -m 4`` threads sharing one engine, free and one request at a
+time, ``thread_probe``.)
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the final line:
@@ -113,7 +115,16 @@ exits non-zero without the final line:
      card; ``python -m qatzip_tpu_torch.tools.distrun --procs 2 --engine
      device --device cuda`` as a program (its ``ok`` line required); and a
      line saying how many distinct cards the mesh had and what went
-     unverified for want of a second. Before those: the
+     unverified for want of a second. Then the tools phase
+     (``tools_paths``): ``qztest`` modes 1-23 on the card at ``-t 2 -l 3
+     -b 65536 -v`` (19 and 21, which drop the engines and fork, as
+     programs); ``qztest -m 4`` on a file of the 64 MiB request, deflate
+     and ``-A lz4``, at one and four threads (launch counts zeroed
+     before and read after each: every kernel of the route launched),
+     and at 64 KiB requests, each ``[TOTAL]`` line with the card's name
+     and power limit; ``run_perf_test -p 2 -t 2``; ``soak`` (40
+     iterations), its first four deflate requests also on device="cpu"
+     held on the card's route: the same bytes. Before those: the
      LZ4 frame decoded on the host leg and on the device leg (each held),
      the token path and the main path with the device CRC held, and one
      compress under ``qz_trace`` (``decode_crc_paths``);
@@ -2284,6 +2295,7 @@ def main() -> None:
     mesh_paths(qz, cuda_pack, data, len(chunks), mesh_want, warm_by_path,
                peak_by_path, launches_by_path, session, decodes, set_route)
     del mesh_want
+    tools_paths(cuda_pack, data, card, set_route)
 
     # -- 5. CPU and CUDA agree ---------------------------------------------------
     head = data[:1 << 20]
@@ -2965,6 +2977,141 @@ def mesh_paths(qz, cuda_pack, data: bytes, rows: int, want, warm_by_path,
               "cards (distrun's all_gather ran over gloo on the host)")
 
 
+# the tools phase: qztest's modes at the reference's request size, then
+# qztest -m 4 on the main paths at full size and at the reference's
+# request size, the perf harness and the soak (all --device cuda)
+TOOL_ARGS = ["-t", "2", "-l", "3", "-b", "65536", "-v", "--device", "cuda"]
+# modes that fork or drop the process's engines run as programs
+TOOL_PROGRAM_MODES = (19, 21)
+# the kernels qztest -m 4 must launch: the card's deflate route (the
+# dynamic device pack with the device crc) and its LZ4 route
+TOOL_KERNELS = {"deflate": PATHS[2][4], "lz4": ("parse_scan",
+                                                "lz4_pack_rows")}
+SOAK_ITERS = 40
+SOAK_CPU_CHECKS = 4
+
+
+def tool_main(main, argv):
+    """``main(argv)`` with its standard output captured: (exit code,
+    output lines, seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def tools_paths(cuda_pack, data: bytes, card: str, set_route) -> None:
+    """The tools phase, everything on the card: (a) ``qztest`` modes 1-23
+    at ``TOOL_ARGS``, in this process except 19 and 21, which run as
+    programs; (b) ``qztest -m 4`` on a file of the 64 MiB corpus, deflate
+    and ``-A lz4``, at one and four threads, each launching every kernel
+    of its route (counts set to 0 just before, read just after), then at
+    64 KiB requests (a request's fixed cost, not the kernels); (c)
+    ``run_perf_test -p 2 -t 2``; (d) ``soak`` (``SOAK_ITERS``), and its
+    first ``SOAK_CPU_CHECKS`` deflate requests again on device="cpu",
+    held on the card's route: the same bytes. Any failure raises."""
+    import tempfile
+
+    from qatzip_tpu_torch.tools import qztest, run_perf_test, soak
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for mode in range(1, 24):
+        argv = ["-m", str(mode), *TOOL_ARGS]
+        if mode in TOOL_PROGRAM_MODES:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m",
+                                "qatzip_tpu_torch.tools.qztest", *argv],
+                               cwd=repo, capture_output=True, text=True,
+                               timeout=600)
+            rc, lines, secs = (r.returncode, r.stdout.splitlines(),
+                               time.perf_counter() - t0)
+            check(rc == 0, f"tools qztest -m {mode}: exit {rc}: "
+                  f"{r.stderr[-3000:]}")
+        else:
+            rc, lines, secs = tool_main(qztest.main, argv)
+            check(rc == 0, f"tools qztest -m {mode}: exit {rc}")
+        info = [ln for ln in lines if ln.startswith("[INFO]")]
+        check(mode in (1, 3) or len(info) == 2,
+              f"tools qztest -m {mode}: {len(info)} [INFO] lines, not 2")
+        total = [ln + " | " + card for ln in lines
+                 if ln.startswith("[TOTAL]")]
+        shown = (total or info[-1:] or [""])[0]
+        how = " (a program)" if mode in TOOL_PROGRAM_MODES else ""
+        print(f"tools qztest -m {mode} {' '.join(TOOL_ARGS)}: exit 0 in "
+              f"{secs:.2f} s{how}: {shown}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus_file = os.path.join(tmp, "corpus.bin")
+        with open(corpus_file, "wb") as f:
+            f.write(data)
+        runs = [(algorithm, ["-t", str(t), "-l", "2", "-D", "both", "-v",
+                             "-i", corpus_file], f"-t {t} -i 64 MiB file",
+                 "the kernels' paths: 1024 rows a request")
+                for algorithm in ("deflate", "lz4") for t in (1, 4)]
+        runs += [("deflate", ["-t", str(t), "-l", "100", "-b", "65536",
+                              "-v"], f"-t {t} -l 100 -b 65536",
+                  "a request's fixed cost: one 64 KiB row a request")
+                 for t in (1, 4)]
+        for algorithm, extra, what, reads in runs:
+            argv = ["-m", "4", "-A", algorithm, "--device", "cuda", *extra]
+            cuda_pack.reset_launch_counts()
+            rc, lines, secs = tool_main(qztest.main, argv)
+            launches = dict(cuda_pack.LAUNCHES)
+            check(rc == 0, f"tools qztest {' '.join(argv)}: exit {rc}")
+            check(all(launches[k] > 0 for k in TOOL_KERNELS[algorithm]),
+                  f"tools qztest -m 4 -A {algorithm} {what}: a kernel of "
+                  f"the route never launched: {launches}")
+            total = [ln for ln in lines if ln.startswith("[TOTAL]")]
+            check(len(total) == 1, f"tools qztest {what}: no [TOTAL] line")
+            for ln in lines:
+                if ln.startswith("[INFO]"):
+                    print(f"tools qztest -m 4 -A {algorithm} {what}: {ln}")
+            print(f"tools qztest -m 4 -A {algorithm} {what} ({reads}): "
+                  f"{total[0]} | {card}; {secs:.2f} s; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+
+    rc, lines, secs = tool_main(run_perf_test.main, [
+        "-p", "2", "-t", "2", "--device", "cuda"])
+    check(rc == 0, "tools run_perf_test: exit " + str(rc))
+    for ln in lines:
+        print(f"tools run_perf_test -p 2 -t 2: {ln}"
+              + (f" | {card}; {secs:.2f} s wall" if "TOTAL" in ln else ""))
+
+    rc, lines, secs = tool_main(soak.main, [
+        "--iters", str(SOAK_ITERS), "--seed", "0", "--device", "cuda"])
+    check(rc == 0 and lines[-1].startswith("soak: all clear"),
+          f"tools soak: exit {rc}")
+    print(f"tools soak --iters {SOAK_ITERS} --seed 0: {lines[-1]} | {card}")
+    checked = []
+    for it, _seed, rng, n, _kind, req, surface in soak.iterations(
+            0, SOAK_ITERS):
+        if surface != 0:
+            continue
+        level, fmt, hw = soak.deflate_case(rng)
+        sess = soak.deflate_session("cuda", level, fmt, hw)
+        got = sess.compress(req)
+        set_route(sess._engine.packs_on_device(False, "deflate"))
+        try:
+            cpu = soak.deflate_session("cpu", level, fmt, hw).compress(req)
+        finally:
+            set_route(None)
+        check(cpu == got, f"tools soak iter {it}: device='cpu' and "
+              f"device='cuda' give other bytes (n {n}, level {level}, "
+              f"{fmt.name}, hw_buff_sz {hw})")
+        checked.append(f"iter {it}: {n} bytes, level {level}, {fmt.name}, "
+                       f"hw_buff_sz {hw} -> {len(got)}")
+        if len(checked) == SOAK_CPU_CHECKS:
+            break
+    print(f"tools soak: the first {len(checked)} deflate requests give the "
+          f"same bytes on device='cpu' (held on the card's route): "
+          f"{'; '.join(checked)}")
+    print(f"tools: phase {time.perf_counter() - t_phase:.2f} s wall | {card}")
+
+
 def host_cost_only() -> None:
     """``--host-cost``: the card line, then ``host_cost_table`` as one JSON
     line. Run from another tree's root through runpy, it times that
@@ -2976,6 +3123,103 @@ def host_cost_only() -> None:
     cuda_pack.kernels()
     print(card_line())
     print(json.dumps(host_cost_table(torch.device("cuda", 0))))
+
+
+#: ``--threads``: the request sizes and thread counts of ``thread_probe``
+THREAD_SIZES = (65536, 262144, 1048576)
+THREAD_COUNTS = (1, 4)
+
+
+def thread_probe() -> None:
+    """``--threads``: how ``qztest -m 4`` threads share one engine on the
+    card. For each request size of THREAD_SIZES, one and four threads
+    (``-l 50``, ``-l 20`` over 64 KiB), each free and with every request
+    held under one process lock (one ``QzSession.compress`` at a time),
+    in turns, twice; at 64 KiB also four threads with a 0.2 ms GIL switch
+    interval and with a CUDA stream a thread; then a profile of one and
+    of four threads at 64 KiB: device activities a request and the host
+    time of one ``cudaLaunchKernel``. Lines ``threads ...``; it measures
+    and claims nothing."""
+    import contextlib
+    import io
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    check(torch.cuda.is_available(), "no CUDA device: torch.cuda is not "
+          "available")
+    from qatzip_tpu_torch.ops import cuda_pack
+    from qatzip_tpu_torch.session import QzSession
+    from qatzip_tpu_torch.tools import qztest
+
+    cuda_pack.kernels()
+    card = card_line()
+    own_compress, own_mode4 = QzSession.compress, qztest.run_mode_4
+    lock = threading.Lock()
+
+    def held(*a, **k):
+        with lock:
+            return own_compress(*a, **k)
+
+    def in_stream(args, tid, stats, direction="both"):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            return own_mode4(args, tid, stats, direction)
+
+    def run(threads, size, how="free", loops=None):
+        QzSession.compress = held if how == "one at a time" else own_compress
+        qztest.run_mode_4 = in_stream if how == "a stream each" else own_mode4
+        switch = sys.getswitchinterval()
+        if how == "switch 0.2 ms":
+            sys.setswitchinterval(0.0002)
+        loops = loops or (50 if size <= 65536 else 20)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = qztest.main(["-m", "4", "-t", str(threads), "-l",
+                                  str(loops), "-b", str(size), "-v",
+                                  "--device", "cuda"])
+        finally:
+            sys.setswitchinterval(switch)
+            QzSession.compress, qztest.run_mode_4 = own_compress, own_mode4
+        check(rc == 0, f"threads: qztest -m 4 -t {threads} -b {size} ({how}) "
+              f"exit {rc}")
+        total = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("[TOTAL]")][0]
+        print(f"threads -b {size} -t {threads} {how}: {total} | {card}",
+              flush=True)
+
+    run(1, 65536, loops=10)                   # warm
+    for _turn in range(2):
+        for size in THREAD_SIZES:
+            for how in ("free", "one at a time"):
+                for threads in THREAD_COUNTS:
+                    run(threads, size, how)
+        for how in ("switch 0.2 ms", "a stream each"):
+            run(4, 65536, how)
+    sess = QzSession("cuda")
+    sess.setup_deflate()
+    data = qztest.gen_random_data(65536)
+    for threads in THREAD_COUNTS:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            workers = [threading.Thread(
+                target=lambda: [sess.compress(data) for _ in range(10)])
+                for _ in range(threads)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = sum(e.count for e in events
+                     if e.device_type.name == "CUDA")
+        launch = [e for e in events if e.key == "cudaLaunchKernel"][0]
+        print(f"threads profile -t {threads}, 10 requests of 64 KiB each: "
+              f"{device / (10 * threads):.1f} device activities a request; "
+              f"cudaLaunchKernel {launch.cpu_time_total / launch.count:.2f} "
+              f"us of host time a call over {launch.count} calls | {card}",
+              flush=True)
 
 
 #: ``--crc-variants``: csrc/crc32_rows.cu's CTA shape (kWarps x kSteps, the
@@ -3113,5 +3357,7 @@ if __name__ == "__main__":
         pair_report(sys.argv[2:])
     elif sys.argv[1:] == ["--crc-variants"]:
         crc_variants()
+    elif sys.argv[1:] == ["--threads"]:
+        thread_probe()
     else:
         main()

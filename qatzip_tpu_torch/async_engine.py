@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import queue as _queue
 import threading
 from typing import Callable, List, Optional
@@ -95,6 +96,15 @@ class AQzRuntime:
             self._threads = []
             self._queue = None
             return QZ_OK
+
+    def _forget_after_fork(self) -> None:
+        """In a child made by fork the workers are gone: the runtime is
+        stopped, and ``aqz_init`` starts it again (the lock freed: another
+        thread may have held it)."""
+        self._lock._at_fork_reinit()
+        self._queue = None
+        self._threads = []
+        self._running = False
 
     def submit(self, req: _Request) -> int:
         """Queue ``req`` without blocking: AQZ_OK, AQZ_NO_SPACE when the
@@ -183,6 +193,7 @@ class AQzRuntime:
 
 
 _aqz_runtime = AQzRuntime()
+os.register_at_fork(after_in_child=_aqz_runtime._forget_after_fork)
 
 
 def aqz_init(num_threads: int = 2,

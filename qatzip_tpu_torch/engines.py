@@ -33,6 +33,18 @@ def host_pool() -> _fut.ThreadPoolExecutor:
         return _pool
 
 
+def _forget_pool_after_fork() -> None:
+    """In a child made by fork the pool's threads are gone (and another
+    thread may have held the lock): the child starts a pool of its own
+    at first use."""
+    global _pool
+    _pool_lock._at_fork_reinit()
+    _pool = None
+
+
+os.register_at_fork(after_in_child=_forget_pool_after_fork)
+
+
 class HostEngine:
     """Software engine: for deflate the native hash-chain matcher and
     packer at levels 1-5 (the JAX package's default software coder), zlib

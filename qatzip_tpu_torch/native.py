@@ -499,6 +499,8 @@ def zstd_link_args():
 
 
 _lock = threading.Lock()
+# another thread may hold it when the process forks
+os.register_at_fork(after_in_child=_lock._at_fork_reinit)
 _lib = None
 
 

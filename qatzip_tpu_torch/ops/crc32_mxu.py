@@ -24,6 +24,7 @@ caller takes the host crc for those.
 from __future__ import annotations
 
 import functools
+import os
 import threading
 import zlib
 from typing import Dict, Tuple
@@ -40,6 +41,21 @@ _v_dev_cache: Dict[Tuple[int, str], torch.Tensor] = {}
 _zero_crc_cache: Dict[int, int] = {}
 _dev_cache: Dict[Tuple[str, int, str], torch.Tensor] = {}
 _lock = threading.Lock()
+_forked_away = []
+
+
+def _forget_after_fork() -> None:
+    """In a child made by fork: empty the device-tensor caches and free
+    the lock (another thread may have held it). The parent's tensors are
+    kept, unused: freeing device memory is a CUDA call, which a child
+    forked after CUDA came up cannot make."""
+    _lock._at_fork_reinit()
+    _forked_away.append((dict(_v_dev_cache), dict(_dev_cache)))
+    _v_dev_cache.clear()
+    _dev_cache.clear()
+
+
+os.register_at_fork(after_in_child=_forget_after_fork)
 
 #: bytes of each row a CTA of the kernel takes (csrc/crc32_rows.cu kBlock:
 #: 4 warps of four 128-byte steps)
@@ -104,8 +120,8 @@ def _v_on(n: int, device: torch.device) -> torch.Tensor:
     got = _v_dev_cache.get(key)
     if got is None:
         got = torch.from_numpy(_v_bits(n)).to(device)
-        with _lock:
-            _v_dev_cache[key] = got
+        with _lock:      # threads that raced here all take the first one
+            got = _v_dev_cache.setdefault(key, got)
     return got
 
 
@@ -173,7 +189,7 @@ def _on(what: str, key: int, device: torch.device) -> torch.Tensor:
         host = mma_fragments() if what == "frag" else _tails(key)
         got = torch.from_numpy(host.view(np.int32).copy()).to(device)
         with _lock:
-            _dev_cache[ck] = got
+            got = _dev_cache.setdefault(ck, got)
     return got
 
 

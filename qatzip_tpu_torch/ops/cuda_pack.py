@@ -45,6 +45,7 @@ overflow bucket) would sort first.
 
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
@@ -62,6 +63,9 @@ _ext_lock = threading.Lock()
 
 #: guards ``LAUNCHES``: a ``MeshEngine`` launches from a thread a device
 _count_lock = threading.Lock()
+# another thread may hold either lock when the process forks
+os.register_at_fork(after_in_child=_ext_lock._at_fork_reinit)
+os.register_at_fork(after_in_child=_count_lock._at_fork_reinit)
 
 
 def count_launch(name: str) -> None:
@@ -205,12 +209,46 @@ def candidate_search(key: torch.Tensor, ctx: torch.Tensor, *, probes: int,
 MAX_PARSE_SEG = 8192
 
 
+#: up to this many segment lanes the plain version walks each lane on
+#: the host from token to token; over it, a torch step a position in
+#: lockstep over all lanes costs less
+HOST_WALK_LANES = 64
+
+
+def _parse_walk(is_match: torch.Tensor, ml: torch.Tensor, seg: int):
+    """:func:`parse_scan_ref` lane by lane in Python, from each token to
+    the next: a match at p covers p .. p + ml - 1, so the next free
+    position is max(p + 1, p + ml)."""
+    b, n = is_match.shape
+    lanes = b * (n // seg)
+    ims = is_match.reshape(lanes, seg).tolist()
+    mls = ml.reshape(lanes, seg).tolist()
+    taken, lit = bytearray(b * n), bytearray(b * n)
+    for r in range(lanes):
+        im_r, ml_r, base, p = ims[r], mls[r], r * seg, 0
+        while p < seg:
+            if im_r[p]:
+                taken[base + p] = 1
+                p += max(ml_r[p], 1)
+            else:
+                lit[base + p] = 1
+                p += 1
+
+    def plane(buf):
+        return (torch.frombuffer(buf, dtype=torch.uint8).reshape(b, n)
+                .to(device=is_match.device, dtype=torch.bool))
+    return plane(taken), plane(lit)
+
+
 def parse_scan_ref(is_match: torch.Tensor, ml: torch.Tensor,
                    seg: int):
     """Plain version of :func:`parse_scan`: one column step per position,
-    in lockstep over all lanes."""
+    in lockstep over all lanes (up to HOST_WALK_LANES lanes, the same
+    planes from :func:`_parse_walk`)."""
     b, n = is_match.shape
     rows = b * (n // seg)
+    if rows <= HOST_WALK_LANES:
+        return _parse_walk(is_match, ml, seg)
     im = is_match.reshape(rows, seg).t().contiguous()
     mls = ml.reshape(rows, seg).t().contiguous()
     taken = torch.empty_like(im)

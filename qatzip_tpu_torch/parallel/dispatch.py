@@ -71,6 +71,7 @@ from ..ops.deflate_pack import (deflate_analyze_hist, deflate_pack_device,
 from ..ops.lz4_decode import decode_blocks_device
 from ..ops.lz4_pack import lz4_pack_device
 from ..ops.lz77 import lz77_tokenize, merge_segment_tokens
+from ..runtime import check_not_forked
 
 # chunks per device dispatch
 TILE_B = 256
@@ -162,9 +163,12 @@ class _ChunkEngine:
         the route ``packs_on_device`` picks: a raw deflate stream, or one
         LZ4 or LZ4s block. On the token path the deflate host packer runs
         mode 1 (static Huffman) for static sessions, mode 0 (best of
-        stored/static/dynamic) otherwise."""
+        stored/static/dynamic) otherwise. In a child forked after CUDA
+        came up, an engine on a CUDA device raises QZ_NOSW_NO_HW
+        (``runtime.check_not_forked``)."""
         if algorithm not in ("deflate", "lz4", "lz4s"):
             raise ValueError(f"unknown algorithm {algorithm}")
+        check_not_forked(self.devices)
         finals = (list(final_flags) if final_flags is not None
                   else [True] * len(chunks))
         if any(len(c) > DEV_MAX for c in chunks):

@@ -13,10 +13,18 @@ every visible CUDA device (the JAX runtime's ``jax.local_devices()``),
 devices in order (``["cuda:0", "cuda:1"]``; a device may repeat). The
 pool keeps one engine per tuple of devices: a ``CudaEngine`` for one
 device, a ``MeshEngine`` that deals the rows over several.
+``Runtime.close`` (qzClose) drops them all.
+
+A process made by ``os.fork()`` starts with an empty pool. CUDA cannot
+run in a child forked after CUDA came up in its parent: there a CUDA
+device is refused with ``QZ_NOSW_NO_HW`` (``Runtime.init`` returns
+QZ_NO_HW or QZ_NOSW_NO_HW), and ``device="cpu"`` works. A worker that
+needs the card is started with the ``spawn`` start method.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, Set, Tuple
 
@@ -27,12 +35,28 @@ from .constants import (QZ_DUPLICATE, QZ_NO_HW, QZ_NOSW_NO_HW, QZ_OK,
 from .utils.debug import qz_log
 
 
+#: the refusal of a CUDA device in a child forked after CUDA came up
+FORKED = ("this process was forked after CUDA came up in its parent, and "
+          "CUDA cannot run in it: start it with the 'spawn' start method "
+          "(multiprocessing.get_context('spawn')), or pass device='cpu'")
+
+
+def check_not_forked(devs) -> None:
+    """Raise QZ_NOSW_NO_HW if ``devs`` holds a CUDA device and this process
+    was forked after CUDA came up in its parent (the first CUDA call
+    would raise torch's RuntimeError)."""
+    if (any(d.type == "cuda" for d in devs)
+            and torch.cuda._is_in_bad_fork()):
+        raise QzError(QZ_NOSW_NO_HW, FORKED)
+
+
 def _one_device(device, every_card: bool) -> Tuple[torch.device, ...]:
     dev = torch.device(device)
     if dev.type == "cpu":
         return (torch.device("cpu"),)
     if dev.type != "cuda":
         raise QzError(QZ_PARAMS, f"unsupported device {dev}")
+    check_not_forked((dev,))
     if not torch.cuda.is_available():
         raise QzError(QZ_NOSW_NO_HW, "no CUDA device is available; pass "
                       "device='cpu' to run the plain versions on the host")
@@ -104,9 +128,38 @@ class Runtime:
                 qz_log("engine up on %s", ", ".join(_key(devs)))
             return eng
 
+    def close(self) -> int:
+        """qzClose (the JAX runtime's ``close``): drop every engine of the
+        pool and forget which devices were brought up. A session keeps
+        the engine it holds; the next session builds a new one. The
+        device memory of a request lives only as long as the request (in
+        torch's caching allocator), so nothing stays behind."""
+        with self._lock:
+            self._engines.clear()
+            self._initialized.clear()
+            return QZ_OK
+
+    def _forget_after_fork(self) -> None:
+        """In a child made by fork: the lock freed (another thread of the
+        parent may have held it) and an empty pool."""
+        self._lock._at_fork_reinit()
+        self._engines = {}
+        self._initialized = set()
+
 
 _runtime = Runtime()
+os.register_at_fork(after_in_child=_runtime._forget_after_fork)
 
 
 def get_runtime() -> Runtime:
     return _runtime
+
+
+def qz_init(device="cuda", sw_backup: int = 1) -> int:
+    """qzInit on the process's runtime (``Runtime.init``)."""
+    return _runtime.init(device, sw_backup)
+
+
+def qz_close() -> int:
+    """qzClose on the process's runtime (``Runtime.close``)."""
+    return _runtime.close()

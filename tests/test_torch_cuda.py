@@ -1365,3 +1365,80 @@ def test_dryrun_multichip_on_card(card):
     fn, args = entry()
     toks, ntok = fn(*args)
     assert toks.shape == (4, 16384) and toks.device == card
+
+
+def test_runtime_close_on_card(card):
+    """qzClose on the card: the pool's engine goes, the next session
+    builds a new one with the same bytes, and the device memory in use
+    after a close stays where the first close left it."""
+    import gc
+    import weakref
+
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch.runtime import get_runtime
+    rt = get_runtime()
+    data = bytes(range(256)) * 1024
+    want, used = None, []
+    for _ in range(3):
+        s = qz.QzSession("cuda")
+        s.setup_deflate()
+        got = s.compress(data)
+        assert want is None or got == want
+        want = got
+        engine = weakref.ref(s._engine)
+        del s
+        assert rt.close() == qz.QZ_OK
+        gc.collect()
+        torch.cuda.synchronize()
+        assert engine() is None
+        used.append(torch.cuda.memory_allocated())
+    assert used[2] <= used[1]
+    import gzip
+    assert gzip.decompress(want) == data
+
+
+def test_forked_child_refuses_cuda_and_runs_cpu(card):
+    """A child forked after CUDA came up: QZ_NOSW_NO_HW for a CUDA
+    session (naming the spawn start method), the parent's bytes on a CPU
+    session held on the card's route."""
+    import os
+    import time
+
+    import qatzip_tpu_torch as qz
+    from qatzip_tpu_torch.runtime import get_runtime
+    data = bytes(range(256)) * 300
+    sess = qz.QzSession("cuda")
+    sess.setup_deflate()
+    want = sess.compress(data)
+    route = sess._engine.packs_on_device(False, "deflate")
+    pid = os.fork()
+    if pid == 0:
+        code = 2
+        try:
+            torch.set_num_threads(1)
+            code = 3
+            assert get_runtime().init("cuda") == qz.QZ_NO_HW
+            try:
+                qz.QzSession("cuda")
+                code = 4
+            except qz.QzError as e:
+                code = 0 if (e.rc == qz.QZ_NOSW_NO_HW
+                             and "spawn" in str(e)) else 5
+            if code == 0:
+                child = qz.QzSession("cpu")
+                child._engine.packs_on_device = lambda *_a, **_k: route
+                child.setup_deflate()
+                code = 0 if child.compress(data) == want else 6
+        finally:
+            os._exit(code)
+    deadline = time.monotonic() + 120
+    while True:
+        done, status = os.waitpid(pid, os.WNOHANG)
+        if done:
+            break
+        if time.monotonic() > deadline:
+            os.kill(pid, 9)
+            os.waitpid(pid, 0)
+            pytest.fail("the forked child hung")
+        time.sleep(0.02)
+    assert os.waitstatus_to_exitcode(status) == 0

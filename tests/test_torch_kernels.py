@@ -117,6 +117,31 @@ def test_parse_scan_ref_adversarial_matches_jax(kind, seg):
     assert np.array_equal(got_l.numpy(), np.asarray(want_l))
 
 
+@pytest.mark.parametrize("seg", [512, 8192])
+@pytest.mark.parametrize("kind", ["random", *PARSE_PLANES])
+def test_parse_scan_ref_lockstep_matches_jax(monkeypatch, kind, seg):
+    """The plain version's lockstep loop, which it runs over more than
+    HOST_WALK_LANES lanes, on the planes above (6 lanes, so forced here):
+    the JAX scan's planes, as the host walk gives them."""
+    if kind == "random":
+        rng = np.random.default_rng(seg)
+        im = rng.random((3, 2 * seg)) < 0.3
+        ml = np.where(im, rng.integers(4, 40, (3, 2 * seg)), 0).astype(
+            np.int32)
+    else:
+        im, ml = parse_plane(kind, 3, 2, seg, seed=seg)
+    want_t, want_l = _jax_parse_scan(jnp.asarray(im), jnp.asarray(ml),
+                                     seg, 2, 3)
+    walk = cuda_pack.parse_scan(torch.from_numpy(im), torch.from_numpy(ml),
+                                seg)
+    monkeypatch.setattr(cuda_pack, "HOST_WALK_LANES", 0)
+    lock = cuda_pack.parse_scan(torch.from_numpy(im), torch.from_numpy(ml),
+                                seg)
+    for got in (walk, lock):
+        assert np.array_equal(got[0].numpy(), np.asarray(want_t))
+        assert np.array_equal(got[1].numpy(), np.asarray(want_l))
+
+
 def test_parse_scan_raises_past_max_seg():
     """The kernel stages one segment in shared memory, so the wrapper
     takes at most 8192 positions a segment, on every device."""
