@@ -124,10 +124,22 @@ exits non-zero without the final line:
      and at 64 KiB requests, each ``[TOTAL]`` line with the card's name
      and power limit; ``run_perf_test -p 2 -t 2``; ``soak`` (40
      iterations), its first four deflate requests also on device="cpu"
-     held on the card's route: the same bytes. Before those: the
+     held on the card's route: the same bytes; ``decprof --mb 16`` and
+     ``ratiocheck --mb 2`` on the card, and ``ratiocheck --mb 1`` on the
+     card and on the CPU (the same JSON line). Before those: the
      LZ4 frame decoded on the host leg and on the device leg (each held),
      the token path and the main path with the device CRC held, and one
-     compress under ``qz_trace`` (``decode_crc_paths``);
+     compress under ``qz_trace`` (``decode_crc_paths``); and right after
+     it the cnv phase (``cnv_paths``): compress-and-verify on the 64 MiB
+     request through the session (its engine wrapped to pass ``cnv``) on
+     the main path, the static and LZ4 device packs and the held token
+     path: ``cnv=True`` gives the path's bytes with the same launch
+     counts; a byte flipped after the kernel in four rows' device words
+     (the token path: in its host packer's output) changes exactly those
+     chunks with ``cnv=False`` and sends exactly those to the fallback
+     with ``cnv=True``, and stock zlib or the LZ4 decoder gives back the
+     input; warm GB/s without and with CnV in turns on the main path and
+     the LZ4 device pack;
   5. the first 1 MiB through device="cpu" and device="cuda" on each
      path, both engines held on it: same bytes; and its LZ4 frame decoded
      on both with the device leg held;
@@ -2216,6 +2228,8 @@ def main() -> None:
     mesh_want = {name: outs_by_path[name] for name in MESH_PATHS}
     decode_crc_paths(qz, cuda_pack, dispatch, data, outs_by_path,
                      warm_by_path, launches_by_path, set_route)
+    cnv_paths(qz, cuda_pack, dispatch, data, outs_by_path, card, session,
+              set_route)
     del outs_by_path
 
     # the devprims path: the probe tool's main at its defaults (B = 128),
@@ -2344,6 +2358,254 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# the cnv phase's paths: (path of PATHS, where its fault goes in: the
+# dispatch function whose device words are flipped after its kernel, or
+# the host packer's output on the token path)
+CNV_PATHS = (("dynamic-device-pack", "deflate_pack_dynamic"),
+             ("static-device-pack", "deflate_pack_device"),
+             ("lz4-device-pack", "lz4_pack_device"),
+             ("token", "deflate_pack"))
+# the rows the fault picks, by their first 64 bytes: text, JSON, JSON and
+# text, one in each tile (a binary-struct row takes the static pack's
+# stored-block guard, which the fault would not reach)
+CNV_ROWS = (5, 276, 600, 969)
+CNV_TURNS = 4
+
+
+class Verified:
+    """An engine whose ``compress_chunks`` takes ``cnv`` from the
+    instance, and keeps its last results; everything else is the
+    engine's. A session whose ``_engine`` it is drives CnV through
+    ``QzSession.compress``."""
+
+    def __init__(self, engine, cnv: bool):
+        self.engine, self.cnv, self.last = engine, cnv, None
+
+    def compress_chunks(self, chunks, **kw):
+        self.last = self.engine.compress_chunks(chunks, cnv=self.cnv, **kw)
+        return self.last
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def flip_rows(dd, words, used, prefixes, per_word: int, ok=None):
+    """``words`` with one byte flipped in the middle of the used words of
+    every row of the staged tile ``dd`` whose first 64 bytes are in
+    ``prefixes`` (and whose ``ok`` flag is set): ``used`` counts bits
+    (``per_word`` 64: half of them over 32) or bytes (8)."""
+    heads = dd[:, :64].cpu().numpy()
+    used = used.cpu().numpy()
+    oks = None if ok is None else ok.cpu().numpy()
+    words = words.clone()
+    for i, head in enumerate(heads):
+        if head.tobytes() in prefixes and (oks is None or oks[i]):
+            words[i, int(used[i]) // per_word] ^= 0x00FF0000
+    return words
+
+
+def cnv_paths(qz, cuda_pack, dispatch, data: bytes, outs_by_path, card: str,
+              session, set_route, kernels_of=None, rows=CNV_ROWS,
+              turns=CNV_TURNS) -> None:
+    """The cnv phase: compress-and-verify on the 64 MiB request through
+    ``QzSession.compress`` with the session's engine wrapped (``Verified``),
+    on the main path, the static device pack, the LZ4 device pack and the
+    held token path. Each path: ``cnv=False`` gives the path's bytes
+    (``outs_by_path``); ``cnv=True`` gives them too, with every kernel of
+    the path launched as often (counts set to 0 just before each run, read
+    just after) and no fallback; then a fault in ``rows`` (a byte flipped
+    in their device words after the kernel, or in the token path's host
+    packer output): with ``cnv=False`` exactly those chunks' payloads
+    change, with ``cnv=True`` exactly those take the fallback (stock zlib
+    through the host engine; the native LZ4 block coder on the LZ4 device
+    pack), the counter ``cnv_fallback`` counts them, and stock zlib (the
+    session's LZ4 decode) gives back the input. Then warm GB/s without and
+    with CnV in turns (off, on, on, off, ...; ``turns`` each) on the main
+    path and the LZ4 device pack, and there the verify alone over the
+    clean payloads, on one thread and on the host pool. ``kernels_of`` maps a path to the
+    kernels it must launch (PATHS' by default). Any failure raises."""
+    import statistics
+    import torch
+    from qatzip_tpu_torch import native
+    from qatzip_tpu_torch.engines import host_engine, host_pool
+    from qatzip_tpu_torch.utils.debug import get_counters
+
+    kinds = {p[0]: p for p in PATHS}
+    kernels_of = kernels_of or {p[0]: p[4] for p in PATHS}
+    lib = native.get_lib()
+    n = 65536
+    chunks = [data[o:o + n] for o in range(0, len(data), n)]
+    prefixes = {chunks[r][:64] for r in rows}
+    check(len(prefixes) == len(rows) and all(
+        sum(c[:64] == chunks[r][:64] for c in chunks) == 1 for r in rows),
+        "cnv: the fault's rows do not have first 64 bytes of their own")
+
+    def fallbacks() -> int:
+        return sum(c.get("cnv_fallback", 0)
+                   for c in get_counters().snapshot().values())
+
+    def real(name):
+        return getattr(lib if name == "deflate_pack" else dispatch, name)
+
+    def faulty(name):
+        """The function ``name`` with the fault after it."""
+        fn = real(name)
+        if name == "deflate_pack":
+            def pack(src, *a, **kw):
+                out = fn(src, *a, **kw)
+                if bytes(src[:64]) in prefixes:
+                    out = bytearray(out)
+                    out[len(out) // 2] ^= 0xFF
+                    out = bytes(out)
+                return out
+            return pack
+        if name == "lz4_pack_device":
+            def lz4(dd, ll, *, n):
+                words, nbytes, ok = fn(dd, ll, n=n)
+                return flip_rows(dd, words, nbytes, prefixes, 8, ok), \
+                    nbytes, ok
+            return lz4
+
+        def deflate(dd, *a, **kw):
+            words, nbits = fn(dd, *a, **kw)
+            return flip_rows(dd, words, nbits, prefixes, 64), nbits
+        return deflate
+
+    def payloads(wrapped):
+        return [p for p, _c in wrapped.last]
+
+    t_phase = time.perf_counter()
+    for name, where in CNV_PATHS:
+        _n, kind, level, route, _k = kinds[name]
+        kernels = kernels_of[name]
+        set_route(route)
+        sess = session(kind, level, "cuda:0")
+        off = Verified(sess._engine, False)
+        on = Verified(sess._engine, True)
+        runs = {}
+        for label, eng in (("off", off), ("on", on)):
+            sess._engine = eng
+            before = fallbacks()
+            cuda_pack.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = sess.compress(data)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            runs[label] = (out, dict(cuda_pack.LAUNCHES), secs)
+            check(fallbacks() == before, f"cnv {name} cnv={label}: a "
+                  "fallback without a fault")
+            check(all(runs[label][1][k] > 0 for k in kernels),
+                  f"cnv {name} cnv={label}: a kernel of the path never "
+                  f"launched: {runs[label][1]}")
+        check(runs["off"][0] == outs_by_path[name], f"cnv {name}: cnv=False "
+              "gives other bytes than the path")
+        check(runs["on"][0] == runs["off"][0], f"cnv {name}: cnv=True gives "
+              "other bytes than cnv=False")
+        check(runs["on"][1] == runs["off"][1], f"cnv {name}: other launch "
+              f"counts under CnV: {runs['on'][1]} vs {runs['off'][1]}")
+        clean = payloads(on)
+
+        # the fault
+        holder = lib if where == "deflate_pack" else dispatch
+        own = getattr(holder, where)
+        setattr(holder, where, faulty(where))
+        try:
+            sess._engine = off
+            bad_out = sess.compress(data)
+            bad = payloads(off)
+            sess._engine = on
+            before = fallbacks()
+            t0 = time.perf_counter()
+            got_out = sess.compress(data)
+            torch.cuda.synchronize()
+            fault_s = time.perf_counter() - t0
+            got = payloads(on)
+            counted = fallbacks() - before
+        finally:
+            setattr(holder, where, own)
+        hit = sorted(i for i, (b, c) in enumerate(zip(bad, clean)) if b != c)
+        check(hit == sorted(rows) and bad_out != runs["off"][0],
+              f"cnv {name}: the fault changed chunks {hit}, not {rows}")
+        took = sorted(i for i, (g, c) in enumerate(zip(got, clean))
+                      if g != c)
+        check(took == sorted(rows) and counted == len(rows),
+              f"cnv {name}: chunks {took} took the fallback ({counted} "
+              f"counted), not {rows}")
+        for i in rows:
+            if kind == "lz4":
+                want = lib.lz4_compress_block(chunks[i])
+            else:
+                (want, _c), = host_engine.compress_chunks(
+                    [chunks[i]], level=level, final_flags=[True],
+                    sw_coder="zlib")
+            check(got[i] == want, f"cnv {name}: chunk {i} is not the "
+                  "fallback's block")
+        if kind == "lz4":
+            sess._engine = off
+            check(sess.decompress(got_out) == data, f"cnv {name}: the LZ4 "
+                  "decoder does not give back the input")
+            decoded = "the session's LZ4 decode gives back the input"
+        else:
+            plain, members = gunzip_members(got_out)
+            check(plain == data and members == len(chunks),
+                  f"cnv {name}: stock zlib does not give back the input")
+            decoded = (f"stock zlib decodes all {members} members to the "
+                       "input")
+        fb = "native LZ4 block coder" if kind == "lz4" else \
+            "host engine, stock zlib"
+        print(f"cnv {name}: cnv=True gives the cnv=False bytes "
+              f"({len(runs['on'][0])}; {runs['off'][2]:.3f} s off, "
+              f"{runs['on'][2]:.3f} s on, cold); launches under CnV the same "
+              f"{ {k: v for k, v in runs['on'][1].items() if v} }; fault "
+              f"({where}: a byte flipped after it) in rows {list(rows)}: "
+              f"cnv=False changes exactly those chunks, cnv=True sends "
+              f"exactly those to the fallback ({fb}; {counted} counted; "
+              f"{fault_s:.3f} s), {decoded}")
+
+        if name in ("dynamic-device-pack", "lz4-device-pack"):
+            times = {False: [], True: []}
+            for cnv in [False, True, True, False] * (turns // 2):
+                sess._engine = on if cnv else off
+                t0 = time.perf_counter()
+                sess.compress(data)
+                torch.cuda.synchronize()
+                times[cnv].append(len(data) / (time.perf_counter() - t0)
+                                  / 1e9)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            print(f"cnv turns {name}: warm GB/s without CnV "
+                  f"{[round(x, 4) for x in times[False]]} median "
+                  f"{med[False]:.4f}, with CnV "
+                  f"{[round(x, 4) for x in times[True]]} median "
+                  f"{med[True]:.4f} = {med[True] / med[False]:.3f}x | {card}")
+            # the verify alone on the clean payloads, one thread and the
+            # host pool, beside the request's extra seconds under CnV
+            if kind == "lz4":
+                def verify(a):
+                    return dispatch.verify_lz4_device(*a)
+            else:
+                def verify(a):
+                    return dispatch.verify_or_fallback(
+                        a[0], a[1], "deflate", True, level, 3)
+            items = list(zip(chunks, clean))
+            t0 = time.perf_counter()
+            for a in items:
+                verify(a)
+            serial_s = time.perf_counter() - t0
+            pool = host_pool()
+            t0 = time.perf_counter()
+            list(pool.map(verify, items))
+            pool_s = time.perf_counter() - t0
+            extra = len(data) / 1e9 * (1 / med[True] - 1 / med[False])
+            print(f"cnv verify alone {name}: {len(items)} payloads "
+                  f"({sum(map(len, clean))} bytes) on one thread "
+                  f"{serial_s:.3f} s, on the host pool "
+                  f"({pool._max_workers} threads) {pool_s:.3f} s; the "
+                  f"request's median extra with CnV {extra:.3f} s | {card}")
+        sess._engine = off.engine
+    set_route(None)
+    print(f"cnv: phase {time.perf_counter() - t_phase:.2f} s wall | {card}")
 
 
 def decode_crc_paths(qz, cuda_pack, dispatch, data: bytes, outs_by_path,
@@ -2989,6 +3251,7 @@ TOOL_KERNELS = {"deflate": PATHS[2][4], "lz4": ("parse_scan",
                                                 "lz4_pack_rows")}
 SOAK_ITERS = 40
 SOAK_CPU_CHECKS = 4
+DECPROF_MB = 16
 
 
 def tool_main(main, argv):
@@ -3012,10 +3275,14 @@ def tools_paths(cuda_pack, data: bytes, card: str, set_route) -> None:
     64 KiB requests (a request's fixed cost, not the kernels); (c)
     ``run_perf_test -p 2 -t 2``; (d) ``soak`` (``SOAK_ITERS``), and its
     first ``SOAK_CPU_CHECKS`` deflate requests again on device="cpu",
-    held on the card's route: the same bytes. Any failure raises."""
+    held on the card's route: the same bytes; (e) ``decprof --mb
+    DECPROF_MB`` (every stage line, the card's line first) and
+    ``ratiocheck --mb 2``, and ``ratiocheck --mb 1`` on the card and on
+    the CPU: the same JSON line. Any failure raises."""
     import tempfile
 
-    from qatzip_tpu_torch.tools import qztest, run_perf_test, soak
+    from qatzip_tpu_torch.tools import (decprof, qztest, ratiocheck,
+                                        run_perf_test, soak)
 
     t_phase = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -3109,6 +3376,29 @@ def tools_paths(cuda_pack, data: bytes, card: str, set_route) -> None:
     print(f"tools soak: the first {len(checked)} deflate requests give the "
           f"same bytes on device='cpu' (held on the card's route): "
           f"{'; '.join(checked)}")
+
+    # decprof and ratiocheck
+    rc, lines, secs = tool_main(decprof.main, ["--mb", str(DECPROF_MB)])
+    stages = ("scan_gzipext:", "inflate_batch_bytes:", "crc_combine_many:",
+              "e2e decompress:", "unaccounted:")
+    check(rc == 0 and lines[0] == "card: " + card and all(
+        any(ln.startswith(st) for ln in lines) for st in stages)
+        and sum("inflate nthreads=" in ln for ln in lines) == 6,
+        f"tools decprof: exit {rc}, {len(lines)} lines")
+    for ln in lines:
+        print(f"tools decprof --mb {DECPROF_MB}: {ln}")
+    print(f"tools decprof --mb {DECPROF_MB}: {secs:.2f} s wall")
+    rc, lines, secs = tool_main(ratiocheck.main, ["--mb", "2"])
+    print(f"tools ratiocheck --mb 2: {lines[-1]} ({secs:.2f} s) | {card}")
+    one = {}
+    for device in ("cuda", "cpu"):
+        rc, lines, secs = tool_main(ratiocheck.main, ["--mb", "1",
+                                                      "--device", device])
+        one[device] = lines[-1]
+        print(f"tools ratiocheck --mb 1 --device {device}: {lines[-1]} "
+              f"({secs:.2f} s)")
+    check(one["cuda"] == one["cpu"], "tools ratiocheck: the JSON line "
+          "differs between --device cuda and --device cpu")
     print(f"tools: phase {time.perf_counter() - t_phase:.2f} s wall | {card}")
 
 

@@ -56,20 +56,30 @@ class HostEngine:
                         algorithm: str = "deflate",
                         final_flags: Optional[Sequence[bool]] = None,
                         mini_match: int = 3, huffman_static: bool = False,
+                        sw_coder: Optional[str] = None,
                         ) -> List[Tuple[bytes, int]]:
         """Each chunk to an independent payload + its crc32. A deflate
         payload is a complete raw stream when its final flag is set, else
         a full-flushed segment; an LZ4 or LZ4s payload is one block.
         ``huffman_static`` is accepted for interface parity; the software
-        coder picks its own block type, as in the JAX package."""
+        coder picks its own block type, as in the JAX package.
+
+        ``sw_coder`` picks the deflate coder: None or "native" the native
+        matcher and packer at levels 1-5, zlib above; "zlib" stock zlib at
+        every level. Compress-and-verify's fallback forces "zlib", so a
+        packer whose output failed verification never codes the chunk
+        again. LZ4 and LZ4s ignore it."""
         from . import native
+        if algorithm not in ("deflate", "lz4", "lz4s"):
+            raise ValueError(f"unknown algorithm {algorithm}")
+        if sw_coder not in (None, "native", "zlib"):
+            raise ValueError(f"unknown software coder {sw_coder}")
         zlevel = effective_deflate_sw_level(level)
         finals = final_flags or [True] * len(chunks)
         lib = native.get_lib()
-        use_native = zlevel <= 5 and algorithm == "deflate"
+        use_native = (zlevel <= 5 and algorithm == "deflate"
+                      and sw_coder != "zlib")
         chain = 4 if zlevel <= 3 else 16
-        if algorithm not in ("deflate", "lz4", "lz4s"):
-            raise ValueError(f"unknown algorithm {algorithm}")
 
         def one(args):
             chunk, final = args

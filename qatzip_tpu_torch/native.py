@@ -286,10 +286,12 @@ class NativeLib:
         return (pay_off[:c], pay_len[:c], src_sz[:c], crcs[:c],
                 int(consumed[0]))
 
-    def inflate_batch_bytes(self, data, in_offs, in_lens, out_sizes):
+    def inflate_batch_bytes(self, data, in_offs, in_lens, out_sizes,
+                            nthreads: int = 0):
         """Decode a member batch into one contiguous buffer on a native
-        thread pool. Returns (out bytes, member crcs, member output
-        lengths (-1 = malformed), member input bytes used)."""
+        pool of ``nthreads`` threads (0: ``_threads()``). Returns (out
+        bytes, member crcs, member output lengths (-1 = malformed),
+        member input bytes used)."""
         n = len(in_offs)
         in_offs = np.ascontiguousarray(in_offs, np.int64)
         in_lens = np.ascontiguousarray(in_lens, np.int64)
@@ -304,7 +306,8 @@ class NativeLib:
         self._lib.qz_inflate_batch(
             _ptr(_u8(data)), _ptr(in_offs, _i64p), _ptr(in_lens, _i64p),
             _ptr(dst), _ptr(out_offs, _i64p), _ptr(caps, _i64p),
-            _ptr(out_lens, _i64p), _ptr(crcs, _u32p), n, self._threads(),
+            _ptr(out_lens, _i64p), _ptr(crcs, _u32p), n,
+            nthreads if nthreads > 0 else self._threads(),
             _ptr(in_used, _i64p))
         return dst[:total].tobytes(), crcs, out_lens, in_used
 

@@ -53,11 +53,30 @@ tokenizer's knobs taken from the whole request. Rows are independent,
 so the engine over k devices gives the one-device engine's bytes on
 every route, for every k. One device gets a ``CudaEngine`` itself.
 
-Not ported yet: compress-and-verify and the multi-tile scan grouping.
+Compress-and-verify (``compress_chunks(..., cnv=True)``, the reference's
+CnV, src/qatzip.c:1774-1806) decodes every payload on the host pool after
+the step that made it and compares it with the chunk
+(``verify_or_fallback``): deflate with stock zlib, LZ4 with the native
+LZ4 decoder; LZ4s blocks pass unverified, as in the JAX package. It
+verifies after the host packer on the token path, after the stored-block
+guard on the deflate device packs, after the device bytes (or the host
+recoding) on the LZ4 device pack, and each joined chunk of the row split
+(whose rows are compressed without it). A chunk that fails is coded
+again on the host: on the token path, the deflate device packs and the
+row split by ``HostEngine`` with stock zlib (``sw_coder="zlib"``; for
+LZ4 its block coder at a 32 KiB window), on the LZ4 device pack by the
+native LZ4 block coder at its 65535-byte window, each as the JAX package
+does. The failure is logged (``qz_log``) and counted (``cnv_fallback``
+in ``utils.debug.get_counters``); no crc changes, and a payload that
+verifies is returned as it was. Over several devices each device
+verifies its share, so the bytes stay the one-device engine's.
+
+Left out on purpose: the multi-tile scan grouping.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +91,7 @@ from ..ops.lz4_decode import decode_blocks_device
 from ..ops.lz4_pack import lz4_pack_device
 from ..ops.lz77 import lz77_tokenize, merge_segment_tokens
 from ..runtime import check_not_forked
+from ..utils.debug import get_counters, qz_log
 
 # chunks per device dispatch
 TILE_B = 256
@@ -149,6 +169,57 @@ def _tok_params(algorithm: str):
     return dict(min_match=4, max_match=32767, window=32768)
 
 
+def _decodes_to(chunk: bytes, payload: bytes, algorithm: str) -> bool:
+    """Whether ``payload`` decodes to ``chunk``: deflate with stock zlib
+    (a raw stream), LZ4 with the native block decoder; a decode error is
+    a mismatch."""
+    from .. import native
+    try:
+        if algorithm == "deflate":
+            out = zlib.decompressobj(-15).decompress(payload)
+        else:
+            out = native.get_lib().lz4_decompress_block(payload, len(chunk))
+    except Exception:  # noqa: BLE001 - any decode error is a mismatch
+        return False
+    return out == chunk
+
+
+def _count_fallback(chunk: bytes, algorithm: str, coder: str) -> None:
+    get_counters().bump("cnv_fallback", 1, len(chunk))
+    qz_log("CnV mismatch: %s fallback (%s) for a %d-byte chunk", algorithm,
+           coder, len(chunk))
+
+
+def verify_or_fallback(chunk: bytes, payload: bytes, algorithm: str,
+                       final: bool, level: int, mini_match: int) -> bytes:
+    """Compress-and-verify one chunk: ``payload`` if it decodes to
+    ``chunk`` (LZ4s passes unverified), else the chunk coded again by the
+    host engine with stock zlib (``sw_coder="zlib"``; LZ4 by its block
+    coder at a 32 KiB window), never by the packer whose output just
+    failed. Counterpart of the JAX engine's ``_verify_or_fallback``."""
+    if algorithm == "lz4s" or _decodes_to(chunk, payload, algorithm):
+        return payload
+    _count_fallback(chunk, algorithm, "host engine, stock zlib")
+    from ..engines import host_engine
+    (fb, _), = host_engine.compress_chunks(
+        [chunk], level=level, algorithm=algorithm, final_flags=[final],
+        mini_match=mini_match, sw_coder="zlib")
+    return fb
+
+
+def verify_lz4_device(chunk: bytes, payload: bytes) -> bytes:
+    """Compress-and-verify one chunk of the LZ4 device pack: ``payload``
+    if the native LZ4 decoder gives back ``chunk``, else the native block
+    coder's block at its default 65535-byte window (as the JAX package's
+    LZ4 device pack does; the token path's fallback,
+    ``verify_or_fallback``, takes the host engine's 32 KiB window)."""
+    from .. import native
+    if _decodes_to(chunk, payload, "lz4"):
+        return payload
+    _count_fallback(chunk, "lz4", "native LZ4 block coder")
+    return native.get_lib().lz4_compress_block(chunk)
+
+
 class _ChunkEngine:
     """What an engine over one device and one over several share: the
     request's row width, and the cut of chunks over DEV_MAX into rows.
@@ -158,14 +229,15 @@ class _ChunkEngine:
                         algorithm: str = "deflate",
                         final_flags: Optional[Sequence[bool]] = None,
                         mini_match: int = 3, huffman_static: bool = False,
-                        ) -> List[Tuple[bytes, int]]:
+                        cnv: bool = False) -> List[Tuple[bytes, int]]:
         """Compress each chunk to an independent payload + its crc32, on
         the route ``packs_on_device`` picks: a raw deflate stream, or one
         LZ4 or LZ4s block. On the token path the deflate host packer runs
         mode 1 (static Huffman) for static sessions, mode 0 (best of
-        stored/static/dynamic) otherwise. In a child forked after CUDA
-        came up, an engine on a CUDA device raises QZ_NOSW_NO_HW
-        (``runtime.check_not_forked``)."""
+        stored/static/dynamic) otherwise. ``cnv`` verifies every payload
+        and codes a chunk that fails again on the host (the module's
+        docstring). In a child forked after CUDA came up, an engine on a
+        CUDA device raises QZ_NOSW_NO_HW (``runtime.check_not_forked``)."""
         if algorithm not in ("deflate", "lz4", "lz4s"):
             raise ValueError(f"unknown algorithm {algorithm}")
         check_not_forked(self.devices)
@@ -173,18 +245,21 @@ class _ChunkEngine:
                   else [True] * len(chunks))
         if any(len(c) > DEV_MAX for c in chunks):
             return self._compress_split(chunks, finals, level, algorithm,
-                                        mini_match, huffman_static)
+                                        mini_match, huffman_static, cnv)
         return self.compress_rows(chunks, finals, _pow2_chunk_n(chunks),
                                   level=level, algorithm=algorithm,
                                   mini_match=mini_match,
-                                  huffman_static=huffman_static)
+                                  huffman_static=huffman_static, cnv=cnv)
 
     def _compress_split(self, chunks, finals, level: int, algorithm: str,
-                        mini_match: int, huffman_static: bool):
+                        mini_match: int, huffman_static: bool,
+                        cnv: bool = False):
         """Chunks over DEV_MAX: each deflate chunk cut into rows of at most
         DEV_MAX bytes, the rows compressed on the session's route with
         only the chunk's last row final, and each chunk's row payloads
-        joined. LZ4 and LZ4s chunks go to the host coder whole."""
+        joined; with ``cnv`` the rows are compressed without it and each
+        joined chunk is verified on the host pool. LZ4 and LZ4s chunks go
+        to the host coder whole, unverified."""
         if algorithm != "deflate":
             from ..engines import host_engine
             return host_engine.compress_chunks(
@@ -200,8 +275,16 @@ class _ChunkEngine:
         done = iter(self.compress_chunks(
             rows, level=level, algorithm=algorithm, final_flags=row_finals,
             mini_match=mini_match, huffman_static=huffman_static))
-        return [(b"".join(next(done)[0] for _ in range(cnt)), crc32(chunk))
-                for chunk, cnt in zip(chunks, counts)]
+        joined = [b"".join(next(done)[0] for _ in range(cnt))
+                  for cnt in counts]
+        if cnv:
+            from ..engines import host_pool
+            joined = list(host_pool().map(
+                lambda a: verify_or_fallback(a[0], a[1], algorithm, a[2],
+                                             level, mini_match),
+                zip(chunks, joined, finals)))
+        return [(payload, crc32(chunk))
+                for chunk, payload in zip(chunks, joined)]
 
 
 class CudaEngine(_ChunkEngine):
@@ -331,7 +414,8 @@ class CudaEngine(_ChunkEngine):
 
     def compress_rows(self, chunks: Sequence[bytes], finals: Sequence[bool],
                       n: int, *, level: int, algorithm: str, mini_match: int,
-                      huffman_static: bool) -> List[Tuple[bytes, int]]:
+                      huffman_static: bool, cnv: bool = False
+                      ) -> List[Tuple[bytes, int]]:
         """``compress_chunks`` for chunks of at most ``n`` <= DEV_MAX
         bytes at row width ``n``, which sets the tokenizer's knobs: the
         caller takes it from the whole request (a ``MeshEngine`` gives
@@ -339,18 +423,21 @@ class CudaEngine(_ChunkEngine):
         if self.packs_on_device(huffman_static, algorithm):
             if algorithm == "lz4":
                 return self._finish_lz4(chunks, self._fetch_lz4(
-                    self._lz4_device_pack(chunks, n)))
+                    self._lz4_device_pack(chunks, n)), cnv=cnv)
             items = self._device_pack(chunks, n, level, not huffman_static)
-            return self._finish(chunks, finals, self._fetch_words(items))
+            return self._finish(chunks, finals, self._fetch_words(items),
+                                level=level, cnv=cnv)
         return self._pack(chunks, finals, 1 if huffman_static else 0,
                           self._tokenize_tiles(chunks, n, level, algorithm),
-                          algorithm, mini_match)
+                          algorithm, mini_match, level=level, cnv=cnv)
 
     def _pack(self, chunks, finals, mode: int, tiles,
-              algorithm: str = "deflate", mini_match: int = 3):
+              algorithm: str = "deflate", mini_match: int = 3, *,
+              level: int = 1, cnv: bool = False):
         """Pack every chunk of ``tiles`` (as _tokenize_tiles yields them)
         with the host packer of ``algorithm`` on the host pool, in
-        submission order."""
+        submission order; with ``cnv`` each payload is verified there,
+        after its packer (``verify_or_fallback``)."""
         from .. import native
         from ..engines import host_pool
         lib = native.get_lib()
@@ -370,6 +457,9 @@ class CudaEngine(_ChunkEngine):
             else:
                 payload = lib.deflate_pack(chunk, toks, len(toks),
                                            final=finals[gi], mode=mode)
+            if cnv:
+                payload = verify_or_fallback(chunk, payload, algorithm,
+                                             finals[gi], level, mini_match)
             return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
         pool = host_pool()
@@ -442,10 +532,12 @@ class CudaEngine(_ChunkEngine):
             yield (start, nt, words_np, nbits_np, hdrs, packs,
                    _host_crcs(dcrc))
 
-    def _finish(self, chunks, finals, fetched):
+    def _finish(self, chunks, finals, fetched, *, level: int = 1,
+                cnv: bool = False):
         """Frame every fetched row on the host pool, in submission order:
         header and EOB for dynamic rows, BFINAL or the full-flush sync,
-        the stored-block guard, crc32."""
+        the stored-block guard, with ``cnv`` the verify
+        (``verify_or_fallback``), crc32."""
         from .. import native
         from ..engines import host_pool
         lib = native.get_lib()
@@ -467,6 +559,9 @@ class CudaEngine(_ChunkEngine):
                 payload = lib.deflate_pack(chunk, np.asarray(runs, np.uint32),
                                            len(runs), final=finals[gi],
                                            mode=0)
+            if cnv:
+                payload = verify_or_fallback(chunk, payload, "deflate",
+                                             finals[gi], level, 3)
             return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
         pool = host_pool()
@@ -507,10 +602,11 @@ class CudaEngine(_ChunkEngine):
             yield (start, nt, words[:, :k].cpu().numpy().view(np.uint32),
                    nb_np, ok_np, _host_crcs(dcrc))
 
-    def _finish_lz4(self, chunks, fetched):
+    def _finish_lz4(self, chunks, fetched, *, cnv: bool = False):
         """Each chunk's block on the host pool, in submission order: the
         device's bytes, or the host LZ4 coder's for a row that is not ok
-        (or an empty chunk); crc32."""
+        (or an empty chunk); with ``cnv`` the verify
+        (``verify_lz4_device``); crc32."""
         from .. import native
         from ..engines import host_pool
         lib = native.get_lib()
@@ -522,6 +618,8 @@ class CudaEngine(_ChunkEngine):
                 payload = words_row[:(nb + 3) // 4].tobytes()[:nb]
             else:
                 payload = lib.lz4_compress_block(chunk)
+            if cnv:
+                payload = verify_lz4_device(chunk, payload)
             return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
         pool = host_pool()
@@ -615,9 +713,10 @@ class MeshEngine(_ChunkEngine):
         return list(zip(self.engines, cuts, cuts[1:]))
 
     def compress_rows(self, chunks, finals, n, *, level, algorithm,
-                      mini_match, huffman_static):
+                      mini_match, huffman_static, cnv=False):
         """Each device's block of rows through its engine's
-        ``compress_rows`` at the request's row width ``n``."""
+        ``compress_rows`` at the request's row width ``n``, each share
+        verified by its engine where ``cnv`` asks for it."""
         def share(_dev, item):
             eng, lo, hi = item
             if lo == hi:
@@ -625,7 +724,7 @@ class MeshEngine(_ChunkEngine):
             return eng.compress_rows(
                 chunks[lo:hi], finals[lo:hi], n, level=level,
                 algorithm=algorithm, mini_match=mini_match,
-                huffman_static=huffman_static)
+                huffman_static=huffman_static, cnv=cnv)
         parts = self.mesh.map(share, self._shares(len(chunks)))
         return [r for part in parts for r in part]
 

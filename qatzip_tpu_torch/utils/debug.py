@@ -2,14 +2,18 @@
 
 Counterpart of ``qatzip_tpu/utils/debug.py`` (reference ``QZ_DEBUG`` /
 ``QZ_ERROR`` and the per-thread HW/SW counters). Logging is enabled with
-``QZTPU_DEBUG=1``, the same switch as the JAX package.
+``QZTPU_DEBUG=1``, the same switch as the JAX package; under it the
+counters, summed over the threads, are written to stderr at exit
+(``Counters.dump``, the reference's ``dumpThreadInfo``).
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import sys
 import threading
+import time
 from collections import defaultdict
 
 DEBUG = os.environ.get("QZTPU_DEBUG") == "1"
@@ -43,9 +47,48 @@ class Counters:
         with self._lock:
             return {tid: dict(c) for tid, c in self._by_thread.items()}
 
+    def dump(self) -> None:
+        """Write every counter, summed over the threads, to stderr on one
+        line (nothing when no counter was bumped)."""
+        snap = self.snapshot()
+        if not snap:
+            return
+        total = defaultdict(int)
+        for c in snap.values():
+            for k, v in c.items():
+                total[k] += v
+        sys.stderr.write("[qztpu_torch] service counters: "
+                         + ", ".join(f"{k}={v}"
+                                     for k, v in sorted(total.items()))
+                         + "\n")
+
 
 _counters = Counters()
 
 
 def get_counters() -> Counters:
     return _counters
+
+
+if DEBUG:
+    atexit.register(_counters.dump)
+
+
+class Timer:
+    """A scope timer (the reference's per-thread timer, src/qatzip.c:
+    410-419): ``elapsed`` seconds of the ``with`` block, logged by
+    ``qz_log``."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.t0 = 0.0
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.t0
+        qz_log("timer %s: %.3f ms", self.name, self.elapsed * 1e3)
+        return False

@@ -1442,3 +1442,144 @@ def test_forked_child_refuses_cuda_and_runs_cpu(card):
             pytest.fail("the forked child hung")
         time.sleep(0.02)
     assert os.waitstatus_to_exitcode(status) == 0
+
+
+# ---------------------------------------------------------------------------
+# compress-and-verify (CnV) on the card
+# ---------------------------------------------------------------------------
+
+_CNV_REC = b"".join(b"rec%05d;" % i for i in range(5000))
+_CNV_SPLIT = b"".join(b"split row %d; " % i for i in range(30000))
+_CNV_DEFLATE = [(b"inject %d " % i) * 400 for i in range(4)]
+_CNV_LZ4 = [b"engine path " * 3000,
+            np.random.default_rng(8).integers(0, 256, 50000,
+                                              dtype=np.uint8).tobytes(),
+            b"R" * 40000, b"", _CNV_REC + _CNV_REC[:20000]]
+_CNV_SPLIT_CHUNKS = [_CNV_SPLIT[:262144], _CNV_SPLIT[5000:105000]]
+# route -> (algorithm, huffman_static, held on the device pack, chunks,
+#           the first bytes of the rows a fault corrupts, the chunks whose
+#           payload it changes, the function the fault follows)
+CNV_ROUTES = {
+    "token-mode0": ("deflate", False, False, _CNV_DEFLATE, (), (), None),
+    "token-mode1": ("deflate", True, False, _CNV_DEFLATE, (), (), None),
+    "static-device-pack": ("deflate", True, True, _CNV_DEFLATE,
+                           (b"inject 1 ", b"inject 2 "), (1, 2),
+                           "deflate_pack_device"),
+    "dynamic-device-pack": ("deflate", False, True, _CNV_DEFLATE,
+                            (b"inject 0 ", b"inject 3 "), (0, 3),
+                            "deflate_pack_dynamic"),
+    "split-token": ("deflate", False, False, _CNV_SPLIT_CHUNKS, (), (),
+                    None),
+    "split-dynamic-device-pack": ("deflate", False, True, _CNV_SPLIT_CHUNKS,
+                                  (_CNV_SPLIT[65536:65568],), (0,),
+                                  "deflate_pack_dynamic"),
+    "lz4-token": ("lz4", False, False, _CNV_LZ4, (), (), None),
+    "lz4-device-pack": ("lz4", False, True, _CNV_LZ4,
+                        (b"engine path", b"rec00000;"), (0, 4),
+                        "lz4_pack_device"),
+    "lz4s": ("lz4s", False, False, _CNV_LZ4, (), (), None),
+}
+
+
+def _cnv_flip(dd, words, used, heads, per_word, ok=None):
+    """``words`` with a byte flipped in the middle of the used words of
+    the rows of ``dd`` that start with one of ``heads`` (and are ok)."""
+    rows = dd.cpu().numpy()
+    used = used.cpu().numpy()
+    words = words.clone()
+    for i, row in enumerate(rows):
+        if row.tobytes().startswith(heads) and (ok is None or bool(ok[i])):
+            words[i, int(used[i]) // per_word] ^= 0x00FF0000
+    return words
+
+
+def _cnv_inject(monkeypatch, route):
+    """Corrupt the device words of the route's chosen rows after the
+    kernels that made them."""
+    from qatzip_tpu_torch.parallel import dispatch
+    heads, where = CNV_ROUTES[route][4], CNV_ROUTES[route][6]
+    real = getattr(dispatch, where)
+    if where == "lz4_pack_device":
+        def fault(dd, ll, *, n):
+            words, nbytes, ok = real(dd, ll, n=n)
+            return _cnv_flip(dd, words, nbytes, heads, 8, ok), nbytes, ok
+    else:
+        def fault(dd, *args, **kw):
+            words, nbits = real(dd, *args, **kw)
+            return _cnv_flip(dd, words, nbits, heads, 64), nbits
+    monkeypatch.setattr(dispatch, where, fault)
+
+
+def _cnv_compress(device, route, cnv):
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
+    algorithm, static, _dp, chunks, _h, _c, _w = CNV_ROUTES[route]
+    return CudaEngine(device).compress_chunks(
+        chunks, level=1, algorithm=algorithm, huffman_static=static,
+        cnv=cnv)
+
+
+def _cnv_hold(monkeypatch, route):
+    from qatzip_tpu_torch.parallel.dispatch import CudaEngine
+    dp = CNV_ROUTES[route][2]
+    monkeypatch.setattr(CudaEngine, "packs_on_device",
+                        lambda self, s, algorithm="deflate": dp)
+
+
+def cnv_keeps_the_bytes(device, monkeypatch, route):
+    """``cnv=True`` gives the ``cnv=False`` bytes on ``device`` and the
+    CPU's, with no fallback."""
+    from qatzip_tpu_torch.utils.debug import get_counters
+    _cnv_hold(monkeypatch, route)
+
+    def fallbacks():
+        return sum(c.get("cnv_fallback", 0)
+                   for c in get_counters().snapshot().values())
+    before = fallbacks()
+    got = _cnv_compress(device, route, True)
+    assert got == _cnv_compress(device, route, False)
+    assert got == _cnv_compress("cpu", route, False)
+    assert fallbacks() == before
+
+
+def cnv_recovers_a_device_fault(device, monkeypatch, route):
+    """A byte flipped in the chosen rows' device words: ``cnv=False``
+    ships it in exactly those chunks, ``cnv=True`` codes exactly those
+    again (the host engine's stock zlib; the native LZ4 block coder on
+    the LZ4 device pack) and every chunk decodes."""
+    from qatzip_tpu_torch import native
+    from qatzip_tpu_torch.engines import host_engine
+    algorithm, _s, _dp, chunks, _h, corrupted, _w = CNV_ROUTES[route]
+    _cnv_hold(monkeypatch, route)
+    clean = _cnv_compress(device, route, False)
+    _cnv_inject(monkeypatch, route)
+    bad = _cnv_compress(device, route, False)
+    assert [i for i, (b, c) in enumerate(zip(bad, clean)) if b != c] == \
+        list(corrupted)
+    got = _cnv_compress(device, route, True)
+    lib = native.get_lib()
+    for i, chunk in enumerate(chunks):
+        if i not in corrupted:
+            assert got[i] == clean[i]
+            continue
+        assert got[i][1] == clean[i][1]
+        if algorithm == "lz4":
+            assert got[i][0] == lib.lz4_compress_block(chunk)
+        else:
+            assert got[i][0] == host_engine.compress_chunks(
+                [chunk], level=1, sw_coder="zlib")[0][0]
+    for chunk, (payload, _crc) in zip(chunks, got):
+        if algorithm == "lz4":
+            assert lib.lz4_decompress_block(payload, len(chunk)) == chunk
+        else:
+            assert zlib.decompressobj(-15).decompress(payload) == chunk
+
+
+@pytest.mark.parametrize("route", sorted(CNV_ROUTES))
+def test_cnv_on_card_keeps_the_bytes(card, monkeypatch, route):
+    cnv_keeps_the_bytes(card, monkeypatch, route)
+
+
+@pytest.mark.parametrize("route", sorted(r for r, v in CNV_ROUTES.items()
+                                         if v[6]))
+def test_cnv_on_card_recovers_a_device_fault(card, monkeypatch, route):
+    cnv_recovers_a_device_fault(card, monkeypatch, route)

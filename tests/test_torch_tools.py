@@ -11,6 +11,11 @@ the CPU.
   * ``run_perf_test``: its sum over a fixed log equals the frozen
     ``tools/run_perf_test.sh``'s awk, and two processes end to end;
   * ``soak --iters 8 --seed 0 --device cpu``;
+  * ``decprof --device cpu --mb 2`` prints every stage line;
+    ``ratiocheck --device cpu --mb 1`` at the engine's level-1 knobs
+    packs each row into the CPU token path's payload, and its
+    ``strided_corpus`` is the frozen ``tools/ratiocheck.py``'s byte for
+    byte; neither module imports JAX;
   * against the JAX package: ``gen_random_data`` byte for byte, mode 6's
     bad-parameter cases rc for rc, and a ``-m 4`` request's bytes (16
     KiB, seed 0; the JAX engine at the (16, 16384) token-path shape that
@@ -49,13 +54,19 @@ from qatzip_tpu_torch.constants import (QZ_DUPLICATE, QZ_NO_HW,
 from qatzip_tpu_torch.ops import crc32_mxu
 from qatzip_tpu_torch.parallel.dispatch import CudaEngine
 from qatzip_tpu_torch.runtime import get_runtime
-from qatzip_tpu_torch.tools import qztest, run_perf_test, soak
+from qatzip_tpu_torch.tools import (decprof, qztest, ratiocheck,
+                                    run_perf_test, soak)
 
 from tests.reference_native import (one_intra_op_thread,
                                      require_reference_native)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU_ARGS = ["--device", "cpu", "-t", "2", "-l", "3", "-b", "16384", "-v"]
+IMPORTS_NO_JAX = (
+    "import sys; import qatzip_tpu_torch.tools.decprof, "
+    "qatzip_tpu_torch.tools.ratiocheck as r; r.strided_corpus(1); "
+    "print(sorted(m for m in sys.modules if m == 'jax' or "
+    "m.startswith(('jax.', 'qatzip_tpu.'))))")
 
 
 def _tool(module, *args):
@@ -79,12 +90,17 @@ def _module():
 
 @pytest.fixture(scope="module")
 def programs():
-    """Mode 21 and two ``run_perf_test`` processes as programs, started
-    once; each mostly waits for its interpreter and torch to load, so
-    they run beside this process's tests."""
+    """Mode 21, two ``run_perf_test`` processes and an import of
+    ``decprof`` and ``ratiocheck`` as programs, started once; each
+    mostly waits for its interpreter and torch to load, so they run
+    beside this process's tests."""
     procs = {
         "mode21": _tool("qatzip_tpu_torch.tools.qztest", "-m", "21",
                         *CPU_ARGS),
+        # the modules JAX and the JAX package would add to a fresh process
+        "imports": subprocess.Popen(
+            [sys.executable, "-c", IMPORTS_NO_JAX], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=REPO),
         "perf": _tool("qatzip_tpu_torch.tools.run_perf_test", "-p", "2",
                       "-t", "1", "-l", "2", "-b", "16384", "--device",
                       "cpu"),
@@ -142,10 +158,13 @@ def test_qztest_without_a_gpu_exits_1(capsys):
         assert "QZ_NOSW_NO_HW" in capsys.readouterr().err
     assert run_perf_test.main(["-p", "1"]) == 1
     assert soak.main(["--iters", "1"]) == 1
+    assert decprof.main(["--mb", "1"]) == 1
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        ratiocheck.main(["--mb", "1"])
 
 
 def test_tools_read_no_qztpu_variable():
-    for mod in (qztest, run_perf_test, soak):
+    for mod in (qztest, run_perf_test, soak, decprof, ratiocheck):
         with open(mod.__file__) as f:
             src = f.read()
         read = re.findall(r"(?:environ(?:\.get)?|getenv)[\[(]\s*['\"](\w+)",
@@ -351,6 +370,71 @@ def test_soak_varies_level_and_chunk_size():
     s = soak.deflate_session("cpu", level, fmt, hw)
     assert (s.common.comp_lvl, s.common.hw_buff_sz, s.data_fmt) == (
         level, hw, fmt)
+
+
+# -- decprof and ratiocheck ------------------------------------------------------
+
+def test_decprof_on_the_cpu(capsys):
+    assert decprof.main(["--device", "cpu", "--mb", "2"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "card: none (--device cpu)"
+    assert lines[1].startswith("corpus 2 MB -> blob ")
+    assert lines[2] == "members: 32"
+    for i, stage in enumerate(("scan_gzipext:", "inflate_batch_bytes:",
+                               "crc_combine_many:", "e2e decompress:",
+                               "unaccounted:")):
+        assert lines[3 + i].startswith(stage) and " ms" in lines[3 + i]
+    threads = [int(re.search(r"nthreads=(\d+)", ln).group(1))
+               for ln in lines if "inflate nthreads=" in ln]
+    assert threads == [1, 2, 4, 8, 16, 32]
+    groups = [ln for ln in lines if ln.lstrip().startswith("members [")]
+    assert len(groups) == 8 and all("1-thread" in ln for ln in groups)
+    assert len(lines) == 8 + 6 + 8
+
+
+def test_ratiocheck_packs_the_token_paths_payloads(monkeypatch):
+    """At the engine's level-1 knobs the tool's rows are the CPU token
+    path's payloads (mode 0, final), which tests/test_torch_session.py
+    holds to the JAX package; its ratio is theirs."""
+    kept = {}
+
+    def keep(data, **kw):
+        kept["rows"], kept["payloads"] = data, real(data, **kw)
+        return kept["payloads"]
+    real = ratiocheck.row_payloads
+    monkeypatch.setattr(ratiocheck, "row_payloads", keep)
+    line = ratiocheck.main(["--device", "cpu", "--mb", "1", "--search-seg",
+                            "8192", "--search-overlap", "896", "--ctx", "3",
+                            "--probes", "7"])
+    rows = [r.tobytes() for r in kept["rows"]]
+    assert len(rows) == 16
+    monkeypatch.setattr(CudaEngine, "packs_on_device",
+                        lambda self, static, algorithm="deflate": False)
+    want = [p for p, _c in CudaEngine("cpu").compress_chunks(rows, level=1)]
+    assert kept["payloads"] == want
+    total = sum(len(p) for p in want)
+    assert line == {
+        "corpus": "mixed", "ctx": 3, "seg": 8192, "probes": 7,
+        "search_seg": 8192, "search_overlap": 896, "mb": 1,
+        "ratio": round(16 * 65536 / total, 4),
+        "zlib_l1_ratio": line["zlib_l1_ratio"],
+        "vs_zlib_l1": line["vs_zlib_l1"]}
+    zl = sum(len(zlib.compress(r, 1)) for r in rows)
+    assert line["zlib_l1_ratio"] == round(16 * 65536 / zl, 4)
+
+
+def test_ratiocheck_strided_corpus_is_the_jax_tools():
+    spec = importlib.util.spec_from_file_location(
+        "jax_ratiocheck", os.path.join(REPO, "tools", "ratiocheck.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = ratiocheck.strided_corpus(1)
+    assert len(got) == 1 << 20 and got == mod.strided_corpus(1)
+
+
+def test_decprof_and_ratiocheck_import_no_jax(programs):
+    rc, out, err = _finished(programs["imports"])
+    assert rc == 0 and out.strip() == "[]", err
 
 
 # -- against the JAX package -----------------------------------------------------
