@@ -1,0 +1,10 @@
+"""compress_gbps [GB/s]: the input bytes of every request completed in
+the window over the window's seconds (1e9 bytes a GB). The window runs
+from the first request's submission to the last one's return; no request
+starts after ``--seconds``."""
+
+
+def read(run):
+    if not run.requests or run.window_s <= 0:
+        return None
+    return sum(r.bytes_in for r in run.requests) / run.window_s / 1e9
