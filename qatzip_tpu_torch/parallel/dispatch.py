@@ -92,6 +92,7 @@ from ..ops.lz4_pack import lz4_pack_device
 from ..ops.lz77 import lz77_tokenize, merge_segment_tokens
 from ..runtime import check_not_forked
 from ..utils.debug import get_counters, qz_log
+from ..utils.trace import span
 
 # chunks per device dispatch
 TILE_B = 256
@@ -312,27 +313,38 @@ class CudaEngine(_ChunkEngine):
         pending = []
         for start in range(0, len(chunks), TILE_B):
             tile = chunks[start:start + TILE_B]
-            data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
-            dd = torch.from_numpy(data).to(self.device)
-            toks, ntok = lz77_tokenize(
-                dd, torch.from_numpy(lengths).to(self.device), n=n, **kw)
+            dd, ll, lengths = self._upload_tile(tile, n)
+            toks, ntok = lz77_tokenize(dd, ll, n=n, **kw)
             pending.append((start, len(tile), toks, ntok,
                             self._tile_crcs(dd, lengths, n)))
         for start, nt, toks, ntok, dcrc in pending:
-            ntok_np = ntok.cpu().numpy()
-            if ntok_np.ndim == 2:
-                # segment-compacted: fetch each segment's used prefix, or
-                # the whole row when a dense segment makes that larger
-                b_, ncs = ntok_np.shape
-                cseg = n // ncs
-                k = _fetch_bucket(int(ntok_np.max()), cseg)
-                sl = toks.reshape(b_, ncs, cseg)
-                if k * ncs < n:
-                    sl = sl[:, :, :k]
-            else:
-                sl = toks[:, :_fetch_bucket(int(ntok_np.max()), n)]
-            yield (start, nt, sl.cpu().numpy().view(np.uint32), ntok_np,
-                   _host_crcs(dcrc))
+            with span("fetch") as sp:
+                ntok_np = ntok.cpu().numpy()
+                if ntok_np.ndim == 2:
+                    # segment-compacted: fetch each segment's used prefix,
+                    # or the whole row when a dense segment makes that
+                    # larger
+                    b_, ncs = ntok_np.shape
+                    cseg = n // ncs
+                    k = _fetch_bucket(int(ntok_np.max()), cseg)
+                    sl = toks.reshape(b_, ncs, cseg)
+                    if k * ncs < n:
+                        sl = sl[:, :, :k]
+                else:
+                    sl = toks[:, :_fetch_bucket(int(ntok_np.max()), n)]
+                toks_np = sl.cpu().numpy().view(np.uint32)
+                crcs = _host_crcs(dcrc)
+                sp.add(d2h_bytes=_nbytes(ntok_np, toks_np, crcs))
+            yield start, nt, toks_np, ntok_np, crcs
+
+    def _upload_tile(self, tile: Sequence[bytes], n: int):
+        """A tile staged into a zero-padded (bucket, n) batch and copied
+        to the device: (data, lengths) on the device, the host lengths."""
+        b = _bucket(len(tile))
+        with span("upload", h2d_bytes=b * (n + 4)):
+            data, lengths = _stage_tile(tile, b, n)
+            return (torch.from_numpy(data).to(self.device),
+                    torch.from_numpy(lengths).to(self.device), lengths)
 
     def packs_on_device(self, huffman_static: bool,
                         algorithm: str = "deflate") -> bool:
@@ -467,7 +479,8 @@ class CudaEngine(_ChunkEngine):
                                           _row_crc(crcs, i)))
                    for start, nt, toks, ntok, crcs in tiles
                    for i in range(nt)]
-        return [f.result() for f in futures]
+        with span("pool_wait"):
+            return [f.result() for f in futures]
 
     # -- the full-device DEFLATE pack ---------------------------------------
 
@@ -481,42 +494,41 @@ class CudaEngine(_ChunkEngine):
         ahead of pass 2, so the host builds tile k's trees while the
         device analyzes tile k + 1, and at most two tiles' planes are
         held at a time."""
-        ss, ov, _cs, ctx, probes = _tok_knobs(level, n)
-        pkw = dict(parse_seg=8192, search_seg=ss, search_overlap=ov,
-                   ctx_words=ctx, probes=probes)
-        items, ahead = [], None
-        for start in range(0, len(chunks), TILE_B):
-            tile = chunks[start:start + TILE_B]
-            data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
-            dd = torch.from_numpy(data).to(self.device)
-            ll = torch.from_numpy(lengths).to(self.device)
-            dcrc = self._tile_crcs(dd, lengths, n)
-            if not dynamic:
-                words, nbits = deflate_pack_device(dd, ll, n=n, **pkw)
-                items.append((start, len(tile), words, nbits, None, None,
-                              dcrc))
-                continue
-            hist, *planes = deflate_analyze_hist(dd, ll, n=n, **pkw)
-            cur = (start, len(tile), dd, planes, _to_host(hist), dcrc)
+        with span("device_pack"):
+            ss, ov, _cs, ctx, probes = _tok_knobs(level, n)
+            pkw = dict(parse_seg=8192, search_seg=ss, search_overlap=ov,
+                       ctx_words=ctx, probes=probes)
+            items, ahead = [], None
+            for start in range(0, len(chunks), TILE_B):
+                tile = chunks[start:start + TILE_B]
+                dd, ll, lengths = self._upload_tile(tile, n)
+                dcrc = self._tile_crcs(dd, lengths, n)
+                if not dynamic:
+                    words, nbits = deflate_pack_device(dd, ll, n=n, **pkw)
+                    items.append((start, len(tile), words, nbits, None, None,
+                                  dcrc))
+                    continue
+                hist, *planes = deflate_analyze_hist(dd, ll, n=n, **pkw)
+                cur = (start, len(tile), dd, planes, _to_host(hist), dcrc)
+                if ahead is not None:
+                    items.append(self._dyn_pass2(n, *ahead))
+                ahead = cur
             if ahead is not None:
                 items.append(self._dyn_pass2(n, *ahead))
-            ahead = cur
-        if ahead is not None:
-            items.append(self._dyn_pass2(n, *ahead))
-        return items
+            return items
 
     def _dyn_pass2(self, n, start, nt, dd, planes, hist, dcrc):
         """Dynamic pass 2 for one tile: wait for its histograms, build each
         chunk's trees and header on the host, dispatch the pack."""
         hist_np, ready = hist
         if ready is not None:
-            ready.synchronize()
+            with span("hist_wait"):
+                ready.synchronize()
         packs, dpacks, hdrs, hbits = plan_tile(hist_np.numpy(), nt)
-        words, nbits = deflate_pack_dynamic(
-            dd, *planes, torch.from_numpy(packs.astype(np.int32)).to(
-                self.device),
-            torch.from_numpy(dpacks.astype(np.int32)).to(self.device),
-            torch.from_numpy(hbits).to(self.device), n=n)
+        tables = (packs.astype(np.int32), dpacks.astype(np.int32), hbits)
+        with span("upload", h2d_bytes=_nbytes(*tables)):
+            tables = [torch.from_numpy(t).to(self.device) for t in tables]
+        words, nbits = deflate_pack_dynamic(dd, *planes, *tables, n=n)
         return start, nt, words, nbits, hdrs, packs, dcrc
 
     @staticmethod
@@ -525,12 +537,14 @@ class CudaEngine(_ChunkEngine):
         the longest row, rounded to a bucket (the dynamic nbits leaves out
         the <= 15-bit EOB, hence the pad)."""
         for start, nt, words, nbits, hdrs, packs, dcrc in items:
-            nbits_np = nbits.cpu().numpy()
-            maxw = int(nbits_np.max() + 15 + 31) // 32 + 1
-            k = _fetch_bucket(maxw, words.shape[1])
-            words_np = words[:, :k].cpu().numpy().view(np.uint32)
-            yield (start, nt, words_np, nbits_np, hdrs, packs,
-                   _host_crcs(dcrc))
+            with span("fetch") as sp:
+                nbits_np = nbits.cpu().numpy()
+                maxw = int(nbits_np.max() + 15 + 31) // 32 + 1
+                k = _fetch_bucket(maxw, words.shape[1])
+                words_np = words[:, :k].cpu().numpy().view(np.uint32)
+                crcs = _host_crcs(dcrc)
+                sp.add(d2h_bytes=_nbytes(nbits_np, words_np, crcs))
+            yield start, nt, words_np, nbits_np, hdrs, packs, crcs
 
     def _finish(self, chunks, finals, fetched, *, level: int = 1,
                 cnv: bool = False):
@@ -538,41 +552,44 @@ class CudaEngine(_ChunkEngine):
         header and EOB for dynamic rows, BFINAL or the full-flush sync,
         the stored-block guard, with ``cnv`` the verify
         (``verify_or_fallback``), crc32."""
-        from .. import native
-        from ..engines import host_pool
-        lib = native.get_lib()
+        with span("finish"):
+            from .. import native
+            from ..engines import host_pool
+            lib = native.get_lib()
 
-        def finish_one(args):
-            gi, words_row, bits, hdr, eob_pack, dcrc = args
-            chunk = chunks[gi]
-            if hdr is not None:
-                payload = finish_stream_dynamic(words_row, bits, hdr,
-                                                eob_pack, final=finals[gi])
-            else:
-                payload = finish_stream(words_row, bits, final=finals[gi])
-            # stored-block guard: never ship an expanded stream; repack
-            # the chunk as all-literal runs with the host packer's best
-            # of stored/static/dynamic
-            if len(payload) >= len(chunk) + 8 and chunk:
-                runs = [0x40000000 | min(16383, len(chunk) - o)
-                        for o in range(0, len(chunk), 16383)]
-                payload = lib.deflate_pack(chunk, np.asarray(runs, np.uint32),
-                                           len(runs), final=finals[gi],
-                                           mode=0)
-            if cnv:
-                payload = verify_or_fallback(chunk, payload, "deflate",
-                                             finals[gi], level, 3)
-            return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
+            def finish_one(args):
+                gi, words_row, bits, hdr, eob_pack, dcrc = args
+                chunk = chunks[gi]
+                if hdr is not None:
+                    payload = finish_stream_dynamic(words_row, bits, hdr,
+                                                    eob_pack, final=finals[gi])
+                else:
+                    payload = finish_stream(words_row, bits, final=finals[gi])
+                # stored-block guard: never ship an expanded stream; repack
+                # the chunk as all-literal runs with the host packer's best
+                # of stored/static/dynamic
+                if len(payload) >= len(chunk) + 8 and chunk:
+                    runs = [0x40000000 | min(16383, len(chunk) - o)
+                            for o in range(0, len(chunk), 16383)]
+                    payload = lib.deflate_pack(
+                        chunk, np.asarray(runs, np.uint32), len(runs),
+                        final=finals[gi], mode=0)
+                if cnv:
+                    payload = verify_or_fallback(chunk, payload, "deflate",
+                                                 finals[gi], level, 3)
+                return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
-        pool = host_pool()
-        futures = [pool.submit(finish_one, (
-            start + i, words_np[i], int(nbits_np[i]),
-            hdrs[i] if hdrs is not None else None,
-            int(packs[i][256]) if packs is not None else 0,
-            _row_crc(crcs, i)))
-            for start, nt, words_np, nbits_np, hdrs, packs, crcs in fetched
-            for i in range(nt)]
-        return [f.result() for f in futures]
+            pool = host_pool()
+            futures = [pool.submit(finish_one, (
+                start + i, words_np[i], int(nbits_np[i]),
+                hdrs[i] if hdrs is not None else None,
+                int(packs[i][256]) if packs is not None else 0,
+                _row_crc(crcs, i)))
+                for start, nt, words_np, nbits_np, hdrs, packs, crcs
+                in fetched
+                for i in range(nt)]
+            with span("pool_wait"):
+                return [f.result() for f in futures]
 
     # -- the full-device LZ4 pack ---------------------------------------------
 
@@ -580,55 +597,65 @@ class CudaEngine(_ChunkEngine):
         """Dispatch every tile's LZ4 device pack. Returns one (tile_start,
         tile_len, words, nbytes, ok, dcrc) per tile, all on the device
         (``dcrc``: ``_tile_crcs``)."""
-        items = []
-        for start in range(0, len(chunks), TILE_B):
-            tile = chunks[start:start + TILE_B]
-            data, lengths = _stage_tile(tile, _bucket(len(tile)), n)
-            dd = torch.from_numpy(data).to(self.device)
-            words, nbytes, ok = lz4_pack_device(
-                dd, torch.from_numpy(lengths).to(self.device), n=n)
-            items.append((start, len(tile), words, nbytes, ok,
-                          self._tile_crcs(dd, lengths, n)))
-        return items
+        with span("device_pack"):
+            items = []
+            for start in range(0, len(chunks), TILE_B):
+                tile = chunks[start:start + TILE_B]
+                dd, ll, lengths = self._upload_tile(tile, n)
+                words, nbytes, ok = lz4_pack_device(dd, ll, n=n)
+                items.append((start, len(tile), words, nbytes, ok,
+                              self._tile_crcs(dd, lengths, n)))
+            return items
 
     @staticmethod
     def _fetch_lz4(items):
         """Yield each tile with its block bytes fetched: the word prefix
         that covers the longest row, rounded to a bucket."""
         for start, nt, words, nbytes, ok, dcrc in items:
-            nb_np = nbytes.cpu().numpy()
-            ok_np = ok.cpu().numpy()
-            k = _fetch_bucket(int(nb_np.max() + 3) // 4 + 1, words.shape[1])
-            yield (start, nt, words[:, :k].cpu().numpy().view(np.uint32),
-                   nb_np, ok_np, _host_crcs(dcrc))
+            with span("fetch") as sp:
+                nb_np = nbytes.cpu().numpy()
+                ok_np = ok.cpu().numpy()
+                k = _fetch_bucket(int(nb_np.max() + 3) // 4 + 1,
+                                  words.shape[1])
+                words_np = words[:, :k].cpu().numpy().view(np.uint32)
+                crcs = _host_crcs(dcrc)
+                sp.add(d2h_bytes=_nbytes(nb_np, ok_np, words_np, crcs))
+            yield start, nt, words_np, nb_np, ok_np, crcs
 
     def _finish_lz4(self, chunks, fetched, *, cnv: bool = False):
         """Each chunk's block on the host pool, in submission order: the
         device's bytes, or the host LZ4 coder's for a row that is not ok
-        (or an empty chunk); with ``cnv`` the verify
+        (or an empty chunk), counted as ``lz4_recoded`` of ``lz4_rows``
+        on the ``finish`` span; with ``cnv`` the verify
         (``verify_lz4_device``); crc32."""
-        from .. import native
-        from ..engines import host_pool
-        lib = native.get_lib()
+        with span("finish", lz4_rows=len(chunks)) as sp:
+            from .. import native
+            from ..engines import host_pool
+            lib = native.get_lib()
 
-        def finish_one(args):
-            gi, words_row, nb, row_ok, dcrc = args
-            chunk = chunks[gi]
-            if row_ok and len(chunk):
-                payload = words_row[:(nb + 3) // 4].tobytes()[:nb]
-            else:
-                payload = lib.lz4_compress_block(chunk)
-            if cnv:
-                payload = verify_lz4_device(chunk, payload)
-            return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
+            def finish_one(args):
+                gi, words_row, nb, device_bytes, dcrc = args
+                chunk = chunks[gi]
+                if device_bytes:
+                    payload = words_row[:(nb + 3) // 4].tobytes()[:nb]
+                else:
+                    payload = lib.lz4_compress_block(chunk)
+                if cnv:
+                    payload = verify_lz4_device(chunk, payload)
+                return payload, lib.crc32(chunk) if dcrc < 0 else dcrc
 
-        pool = host_pool()
-        futures = [pool.submit(finish_one, (start + i, words_np[i],
-                                            int(nb_np[i]), bool(ok_np[i]),
-                                            _row_crc(crcs, i)))
-                   for start, nt, words_np, nb_np, ok_np, crcs in fetched
-                   for i in range(nt)]
-        return [f.result() for f in futures]
+            pool = host_pool()
+            futures, recoded = [], 0
+            for start, nt, words_np, nb_np, ok_np, crcs in fetched:
+                for i in range(nt):
+                    device_bytes = bool(ok_np[i] and chunks[start + i])
+                    recoded += not device_bytes
+                    futures.append(pool.submit(finish_one, (
+                        start + i, words_np[i], int(nb_np[i]), device_bytes,
+                        _row_crc(crcs, i))))
+            sp.add(lz4_recoded=recoded)
+            with span("pool_wait"):
+                return [f.result() for f in futures]
 
 
 def _host_crcs(dcrc):
@@ -639,6 +666,11 @@ def _host_crcs(dcrc):
         return None
     crcs, full = dcrc
     return np.where(full, crcs.cpu().numpy(), -1)
+
+
+def _nbytes(*arrays) -> int:
+    """Bytes of the numpy arrays given (None counts 0)."""
+    return sum(a.nbytes for a in arrays if a is not None)
 
 
 def _row_crc(crcs, i: int) -> int:
@@ -670,11 +702,12 @@ def plan_tile(hist: np.ndarray, nt: int):
     dpacks = np.zeros((b, 30), np.uint16)
     hdrs = [b""] * b
     hbits = np.zeros(b, np.int32)
-    for i in range(nt):
-        lf = hist[i, :286].astype(np.uint32)
-        lf[256] += 1
-        packs[i], dpacks[i], hdrs[i], hbits[i] = lib.dyn_plan(
-            lf, hist[i, 286:].astype(np.uint32))
+    with span("dyn_plan"):
+        for i in range(nt):
+            lf = hist[i, :286].astype(np.uint32)
+            lf[256] += 1
+            packs[i], dpacks[i], hdrs[i], hbits[i] = lib.dyn_plan(
+                lf, hist[i, 286:].astype(np.uint32))
     return packs, dpacks, hdrs, hbits
 
 

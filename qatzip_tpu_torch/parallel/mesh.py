@@ -36,6 +36,7 @@ import torch
 from ..ops.deflate_pack import (deflate_analyze_hist, deflate_pack_device,
                                 deflate_pack_dynamic)
 from ..ops.lz77 import lz77_tokenize
+from ..utils.trace import submit
 
 
 class Mesh:
@@ -58,11 +59,13 @@ class Mesh:
     def map(self, fn, items: Sequence) -> List:
         """``fn(device, item)`` for item i on shard i (at most ``size``
         items), all at once: one host thread a shard, inside its device's
-        context and on the shard's own CUDA stream. Returns the results in
-        shard order once every shard is done; raises the first shard's
-        error. CPU shards run one after another on the calling thread:
-        they share the host's cores, over which torch already spreads
-        each op (concurrent ops only contend for them)."""
+        context and on the shard's own CUDA stream, in a copy of the
+        caller's context (``utils.trace.submit``: the shard's spans carry
+        the caller's request). Returns the results in shard order once
+        every shard is done; raises the first shard's error. CPU shards
+        run one after another on the calling thread: they share the
+        host's cores, over which torch already spreads each op
+        (concurrent ops only contend for them)."""
         if len(items) > self.size:
             raise ValueError(f"{len(items)} shards for {self.size} devices")
         if self.devices[0].type == "cpu":
@@ -72,7 +75,7 @@ class Mesh:
                 self._pool = _fut.ThreadPoolExecutor(
                     self.size, thread_name_prefix="qz-mesh")
                 self._streams = [torch.cuda.Stream(d) for d in self.devices]
-        futures = [self._pool.submit(self._run, i, fn, item)
+        futures = [submit(self._pool, self._run, i, fn, item)
                    for i, item in enumerate(items)]
         _fut.wait(futures)
         return [f.result() for f in futures]

@@ -33,6 +33,7 @@ from .constants import (API_VERSION, DataFormat, Direction, HuffmanHdr,
 from .engines import host_engine
 from .ops.checksum import crc32_combine
 from .runtime import get_runtime
+from .utils.trace import span
 
 
 class QzSession:
@@ -148,25 +149,27 @@ class QzSession:
         the JAX package. An LZ4s session with a callback returns the
         callback's output (reference src/qatzip.c:2217-2249); a callback
         that fails raises QZ_POST_PROCESS_ERROR."""
-        c = self._ready()
-        if c.direction == Direction.DIR_DECOMPRESS:
-            raise QzError(QZ_PARAMS, "session is decompress-only")
-        data = bytes(data)
-        legacy_sw = self._legacy_api and c.comp_lvl == 9
-        out, crc = _codec.compress_buffer(
-            data, algorithm=self.algorithm, data_fmt=self.data_fmt,
-            level=c.comp_lvl, hw_buff_sz=c.hw_buff_sz,
-            engine=None if legacy_sw else self._engine,
-            sw_backup=c.sw_backup,
-            input_sz_thrshold=c.input_sz_thrshold, mini_match=self.mini_match,
-            huffman_static=self.huffman_hdr == HuffmanHdr.STATIC_HDR)
-        if self.algorithm == "lz4s" and self.qz_callback is not None:
-            try:
-                out = self.qz_callback(self.qz_callback_external, data, out,
-                                       self.mini_match)
-            except Exception as e:  # noqa: BLE001 (any callback failure)
-                raise QzError(QZ_POST_PROCESS_ERROR, str(e)) from None
-        self._count(len(data), len(out), crc)
+        with span("compress"):
+            c = self._ready()
+            if c.direction == Direction.DIR_DECOMPRESS:
+                raise QzError(QZ_PARAMS, "session is decompress-only")
+            data = bytes(data)
+            legacy_sw = self._legacy_api and c.comp_lvl == 9
+            out, crc = _codec.compress_buffer(
+                data, algorithm=self.algorithm, data_fmt=self.data_fmt,
+                level=c.comp_lvl, hw_buff_sz=c.hw_buff_sz,
+                engine=None if legacy_sw else self._engine,
+                sw_backup=c.sw_backup,
+                input_sz_thrshold=c.input_sz_thrshold,
+                mini_match=self.mini_match,
+                huffman_static=self.huffman_hdr == HuffmanHdr.STATIC_HDR)
+            if self.algorithm == "lz4s" and self.qz_callback is not None:
+                try:
+                    out = self.qz_callback(self.qz_callback_external, data,
+                                           out, self.mini_match)
+                except Exception as e:  # noqa: BLE001 (any callback failure)
+                    raise QzError(QZ_POST_PROCESS_ERROR, str(e)) from None
+            self._count(len(data), len(out), crc)
         return (out, crc) if with_crc else out
 
     def compress_batch(self, datas):
