@@ -35,7 +35,10 @@ exits non-zero without the final line:
      32768), bit-identical and timed; the row bit-packer also against the
      route it replaced (emission planes, offsets, the 256-position group
      pack and the window assembly, in plain torch), bit-identical, with
-     that route's time;
+     that route's time; the stage kernels between them at the level-1
+     main path's shapes: the search's inputs, the parse's inputs (also on
+     b"A" rows under the LZ4 token path's rules, several launches) and
+     both passes' symbol planes;
      the LZ4 byte packer on the LZ4 device pack's own planes of that tile
      (the full-row search's parse, timed apart) against its plain version
      and against the torch route it stands for (the JAX package's run
@@ -143,7 +146,7 @@ exits non-zero without the final line:
   5. the first 1 MiB through device="cpu" and device="cuda" on each
      path, both engines held on it: same bytes; and its LZ4 frame decoded
      on both with the device leg held;
-  6. the kernel summary line (twelve kernels), the card line, and
+  6. the kernel summary line (fifteen kernels), the card line, and
      {"ok": true, ...}.
 
 It imports neither jax nor the JAX package.
@@ -170,21 +173,26 @@ OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside the tensor cores
 #  "lz4", and "lz4s-zstd" (an LZ4s session with the zstd callback).
 PATHS = [
     ("token", "dynamic", 1, False,
-     ("candidate_search", "parse_scan", "crc32_rows")),
-    ("static-device-pack", "static", 1, None,
-     ("candidate_search", "parse_scan", "pack_rows", "crc32_rows")),
-    ("dynamic-device-pack", "dynamic", 1, None,
-     ("candidate_search", "parse_scan", "symbol_histogram",
-      "huffman_lookup", "pack_rows", "crc32_rows")),
-    ("lz4-token", "lz4", 1, False,
-     ("candidate_search", "parse_scan", "crc32_rows")),
-    ("lz4-device-pack", "lz4", 1, True,
-     ("parse_scan", "lz4_pack_rows", "crc32_rows")),
-    ("lz4s-zstd", "lz4s-zstd", 1, None,
-     ("candidate_search", "parse_scan", "crc32_rows")),
-    ("level6-dynamic-device-pack", "dynamic", 6, None,
-     ("parse_scan", "symbol_histogram", "huffman_lookup", "pack_rows",
+     ("search_inputs", "candidate_search", "parse_inputs", "parse_scan",
       "crc32_rows")),
+    ("static-device-pack", "static", 1, None,
+     ("search_inputs", "candidate_search", "parse_inputs", "parse_scan",
+      "pack_rows", "crc32_rows")),
+    ("dynamic-device-pack", "dynamic", 1, None,
+     ("search_inputs", "candidate_search", "parse_inputs", "parse_scan",
+      "symbol_planes", "symbol_histogram", "huffman_lookup", "pack_rows",
+      "crc32_rows")),
+    ("lz4-token", "lz4", 1, False,
+     ("search_inputs", "candidate_search", "parse_inputs", "parse_scan",
+      "crc32_rows")),
+    ("lz4-device-pack", "lz4", 1, True,
+     ("parse_inputs", "parse_scan", "lz4_pack_rows", "crc32_rows")),
+    ("lz4s-zstd", "lz4s-zstd", 1, None,
+     ("search_inputs", "candidate_search", "parse_inputs", "parse_scan",
+      "crc32_rows")),
+    ("level6-dynamic-device-pack", "dynamic", 6, None,
+     ("parse_inputs", "parse_scan", "symbol_planes", "symbol_histogram",
+      "huffman_lookup", "pack_rows", "crc32_rows")),
 ]
 # the path whose launches the kernel summary reports: the default
 # (dynamic) session on the card, which runs six kernels (the device CRC
@@ -630,7 +638,10 @@ KERNEL_SYMBOLS = {"candidate_search": "candsearch_kernel",
                   "huffman_lookup": "lookup_kernel",
                   "pack_rows": "pack_rows_kernel",
                   "lz4_resolve_refs": "resolve_kernel",
-                  "crc32_rows": "crc_kernel"}
+                  "crc32_rows": "crc_kernel",
+                  "search_inputs": "search_inputs_kernel",
+                  "parse_inputs": "parse_inputs_kernel",
+                  "symbol_planes": "symbol_planes_kernel"}
 
 
 def host_ms(fn, reps: int = 3) -> float:
@@ -1658,11 +1669,25 @@ def main() -> None:
         print(f"kernel {name} {shape} {plane}: identical, {ms:.4f} ms vs "
               f"plain {plain_ms:.4f} ms")
 
-    key, ctx, pbits, unwindow = lz77._search_inputs(
+    key, ctx, pbits, ov = lz77._search_inputs(
         tile, lengths, n=n, min_match=4, window=32768, ctx_words=ctx_words,
         search_seg=ss, search_overlap=ov)
     check(tuple(key.shape) == (2304, 8192) and ctx.shape[0] == 3,
           f"unexpected k2 shapes {tuple(key.shape)} {tuple(ctx.shape)}")
+    # the candidate search's inputs: the rows' bytes read once, a key and
+    # ctx_words context words written a slot; a few operations a word
+    si_kw = dict(min_match=4, ctx_words=ctx_words, width=ss, overlap=ov)
+    got = lz77.search_inputs(tile, lengths, **si_kw)
+    record("search_inputs", "search_inputs.cu",
+           "qatzip_tpu/ops/lz77.py:176-262 (XLA ops of _analyze)",
+           max_err(got, lz77.search_inputs_ref(tile, lengths, **si_kw)),
+           event_ms(lambda: lz77.search_inputs(tile, lengths, **si_kw), 10),
+           event_ms(lambda: lz77.search_inputs_ref(tile, lengths, **si_kw),
+                    2), None,
+           tile.numel() + key.numel() * 4 * (1 + ctx_words),
+           key.numel() * (8 * ctx_words + 4),
+           f"{tuple(tile.shape)} -> {tuple(key.shape)} x {1 + ctx_words}")
+    del got
     kw = dict(probes=probes, min_match=4, pbits=pbits)
     k2_ops, k2_counts = k2_probe_ops(key, ctx, probes, pbits)
     got = cuda_pack.candidate_search(key, ctx, **kw)
@@ -1698,10 +1723,48 @@ def main() -> None:
                     one, ctx, **kw), 2))
     del one
 
-    kv = unwindow(got)
-    is_match, ml_c, _dist, seg = lz77._parse_inputs(
-        lengths, (kv >> 13) & 0x1F, (kv & 0x1FFF) + 1, n=n, min_match=4,
-        max_match=258, ctx_bytes=4 * ctx_words, parse_seg=8192)
+    # the parse's inputs from the kernel's windows: the window words read
+    # once (their overlap included), is_match, ml and dist written once;
+    # each extension round and the tail a few operations a position
+    pi_kw = dict(n=n, overlap=ov, min_match=4, max_match=258,
+                 ctx_bytes=4 * ctx_words, parse_seg=8192)
+    pi_launches = lz77.parse_inputs_launches(n=n, max_match=258,
+                                             ctx_bytes=4 * ctx_words)
+    pi = lz77.parse_inputs(lengths, kv=got, **pi_kw)
+    record("parse_inputs", "parse_inputs.cu",
+           "qatzip_tpu/ops/lz77.py:383-400, 542-590 (XLA ops of "
+           "_extend_matches, _analyze_tail)",
+           max_err(pi, lz77.parse_inputs_ref(lengths, kv=got, **pi_kw)),
+           event_ms(lambda: lz77.parse_inputs(lengths, kv=got, **pi_kw), 10),
+           event_ms(lambda: lz77.parse_inputs_ref(lengths, kv=got, **pi_kw),
+                    2), None, got.numel() * 4 + tile.numel() * 9,
+           tile.numel() * (6 * pi_launches[0][1] + 20),
+           f"{tuple(got.shape)} -> {tuple(tile.shape)}, {len(pi_launches)} "
+           "launch")
+    is_match, ml_c, _dist = pi
+    seg = 8192
+    # adversarial: b"A" rows on the token path's LZ4 rules (max_match
+    # 32767): the caps reach across the row, so the first seven rounds run
+    # in one launch and each wider round in one more
+    a_tile = torch.full_like(tile, 65)
+    a_key, a_ctx, _pb, _ov = lz77._search_inputs(
+        a_tile, lengths, n=n, min_match=4, window=32768, ctx_words=4,
+        search_seg=ss, search_overlap=ov)
+    a_kv = cuda_pack.candidate_search(a_key, a_ctx, probes=probes,
+                                      min_match=4, pbits=pbits)
+    a_kw = dict(n=n, overlap=ov, min_match=4, max_match=32767, ctx_bytes=16,
+                parse_seg=8192, lz4_rules=True)
+    a_launches = len(lz77.parse_inputs_launches(n=n, max_match=32767,
+                                                ctx_bytes=16))
+    adversarial("parse_inputs", f"A rows, LZ4 token rules ({a_launches} "
+                "launches)", (TILE_B, n),
+                max_err(lz77.parse_inputs(lengths, kv=a_kv, **a_kw),
+                        lz77.parse_inputs_ref(lengths, kv=a_kv, **a_kw)),
+                event_ms(lambda: lz77.parse_inputs(lengths, kv=a_kv, **a_kw),
+                         10),
+                event_ms(lambda: lz77.parse_inputs_ref(lengths, kv=a_kv,
+                                                       **a_kw), 2))
+    del a_tile, a_key, a_ctx, a_kv
     lanes = TILE_B * (n // seg)
     check(lanes == 2048 and seg == 8192, f"unexpected parse lanes {lanes}")
     taken, lit = cuda_pack.parse_scan(is_match, ml_c, seg)
@@ -1731,7 +1794,7 @@ def main() -> None:
                 event_ms(lambda: cuda_pack.parse_scan(nm_im, nm_ml, seg), 10),
                 event_ms(lambda: cuda_pack.parse_scan_ref(nm_im, nm_ml, seg),
                          1))
-    del key, ctx, got, kv, is_match, ml_c, nm_im, nm_ml
+    del key, ctx, got, pi, is_match, ml_c, nm_im, nm_ml
 
     # the device packers' planes of the same tile, at the level-1 knobs
     ml, dist, taken, lit = dp._analyze_planes(
@@ -1809,7 +1872,29 @@ def main() -> None:
     k1_adversarial("static", hdr3, mw_static,
                    lambda ml4, d4, tk: {"data": tile})
 
-    sym, dsym_m = dp.hist_symbols(tile, ml, dist, taken, lit)
+    # the dynamic pack's symbol planes, both passes: data, ml, dist,
+    # taken and lit read once, two int32 planes written; the two symbols'
+    # arithmetic ~24 operations a position
+    sp_bytes = tile.numel() * (1 + 4 + 4 + 1 + 1 + 8)
+    for mode in (1, 2):
+        sp = dp.symbol_planes(tile, ml, dist, taken, lit, mode=mode)
+        sp_err = max_err(sp, dp.symbol_planes_ref(tile, ml, dist, taken, lit,
+                                                  mode=mode))
+        sp_ms = event_ms(lambda: dp.symbol_planes(tile, ml, dist, taken,
+                                                  lit, mode=mode), 20)
+        sp_plain = event_ms(lambda: dp.symbol_planes_ref(
+            tile, ml, dist, taken, lit, mode=mode), 3)
+        if mode == 1:
+            record("symbol_planes", "symbol_planes.cu",
+                   "qatzip_tpu/ops/deflate_pack.py:362-382 (XLA ops of "
+                   "_len_symbol, _dist_symbol)", sp_err, sp_ms, sp_plain,
+                   None, sp_bytes, tile.numel() * 24,
+                   f"pass 1 {tuple(tile.shape)}")
+        else:
+            adversarial("symbol_planes", "pass 2's form", (TILE_B, n),
+                        sp_err, sp_ms, sp_plain)
+    del sp
+    sym, dsym_m = dp.symbol_planes(tile, ml, dist, taken, lit, mode=1)
     hist = cuda_pack.symbol_histogram(sym, dsym_m)
     err = max_err(hist, cuda_pack.symbol_histogram_ref(sym, dsym_m))
     # the library call's input: row * (NBINS + 1) + value, each row's
@@ -1834,7 +1919,7 @@ def main() -> None:
     packs, dpacks, _hdrs, hbits = plan_tile(hist.cpu().numpy(), TILE_B)
     lit_pack = torch.from_numpy(packs.astype("int32")).to(dev)
     dist_pack = torch.from_numpy(dpacks.astype("int32")).to(dev)
-    lsym, ldsym = dp.lookup_symbols(tile, ml, dist, taken, lit)
+    lsym, ldsym = dp.symbol_planes(tile, ml, dist, taken, lit, mode=2)
     lpack, dpack = cuda_pack.huffman_lookup(lit_pack, dist_pack, lsym, ldsym)
     err = max_err((lpack, dpack), cuda_pack.huffman_lookup_ref(
         lit_pack, dist_pack, lsym, ldsym))
@@ -1861,7 +1946,8 @@ def main() -> None:
         """The far-4 plane's codes in the tile's own tables."""
         lp, dq = cuda_pack.huffman_lookup(
             lit_pack, dist_pack,
-            *dp.lookup_symbols(tile, ml4, d4, tk, torch.zeros_like(tk)))
+            *dp.symbol_planes(tile, ml4, d4, tk, torch.zeros_like(tk),
+                              mode=2))
         return {"lpack": lp, "dpack": dq}
     k1_adversarial("dynamic", hdr, mw_dyn, lookup)
     k1_phase("dynamic", planes, hdr, mw_dyn, 99,

@@ -76,6 +76,13 @@ ENTRY(bitonic128, "ppppip", P(0), P(1), P(2), P(3), I(4), P(5))
 ENTRY(lz4_resolve_refs, "pppiiip", P(0), P(1), P(2), I(3), I(4), I(5), P(6))
 ENTRY(crc32_rows, "ppppiiip", P(0), P(1), P(2), P(3), I(4), I(5), I(6),
       P(7))
+ENTRY(search_inputs, "ppppiiiiiiiip", P(0), P(1), P(2), P(3), I(4), I(5),
+      I(6), I(7), I(8), I(9), I(10), I(11), P(12))
+ENTRY(parse_inputs, "pppppppppiiiiiiiiiip", P(0), P(1), P(2), P(3), P(4),
+      P(5), P(6), P(7), P(8), I(9), I(10), I(11), I(12), I(13), I(14),
+      I(15), I(16), I(17), I(18), P(19))
+ENTRY(symbol_planes, "pppppppiiip", P(0), P(1), P(2), P(3), P(4), P(5), P(6),
+      I(7), I(8), I(9), P(10))
 
 #define METHOD(name) \
   {#name, (PyCFunction)(void (*)(void))py_##name, METH_FASTCALL, NULL}
@@ -85,7 +92,8 @@ static PyMethodDef methods[] = {
     METHOD(huffman_lookup),   METHOD(symbol_histogram),
     METHOD(lz4_pack_rows),    METHOD(lane_gather),  METHOD(sublane_gather),
     METHOD(roll_sum),         METHOD(bitonic128),   METHOD(lz4_resolve_refs),
-    METHOD(crc32_rows),       {NULL, NULL, 0, NULL}};
+    METHOD(crc32_rows),       METHOD(search_inputs), METHOD(parse_inputs),
+    METHOD(symbol_planes),    {NULL, NULL, 0, NULL}};
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "_qz_kernels",

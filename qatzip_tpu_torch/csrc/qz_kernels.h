@@ -44,6 +44,17 @@ int qz_lz4_resolve_refs(void* ref, void* out, void* unresolved, int rows,
 int qz_crc32_rows(const void* data, void* out, const void* frag,
                   const void* tails, int rows, int n, int zero_crc,
                   void* stream);
+int qz_search_inputs(const void* data, const void* lengths, void* key,
+                     void* ctx, int rows, int n, int w, int ov, int ctx_words,
+                     int min_match, int pbits, int hb, void* stream);
+int qz_parse_inputs(const void* kv, const void* ml_in, const void* dist_in,
+                    const void* p_in, const void* lengths, void* p_out,
+                    void* is_match, void* ml, void* dist, int rows, int n,
+                    int w, int ov, int cap, int rounds, int min_match,
+                    int max_match, int seg, int lz4_rules, void* stream);
+int qz_symbol_planes(const void* data, const void* ml, const void* dist,
+                     const void* taken, const void* lit, void* sym,
+                     void* dsym, int rows, int n, int mode, void* stream);
 const char* qz_cuda_error_string(int code);
 
 #ifdef __cplusplus

@@ -35,7 +35,15 @@ what it replaces:
     in ``lz4_decode.py``;
   * ``crc32_rows`` — the device CRC32, an XLA dot in the JAX package
     (``crc32_mxu.py::crc32_batch_device``); its wrapper and plain version
-    live in ``crc32_mxu.py``.
+    live in ``crc32_mxu.py``;
+  * ``search_inputs``, ``parse_inputs`` — the tokenizer's stages around
+    the candidate search and the parse, which XLA fused in the JAX
+    package (``lz77.py::_analyze``, ``_extend_matches``,
+    ``_analyze_tail``); their wrappers and plain versions live in
+    ``lz77.py``;
+  * ``symbol_planes`` — the dynamic pack's symbol planes, XLA ops in the
+    JAX package (``deflate_pack.py::_len_symbol``, ``_dist_symbol``); its
+    wrapper and plain versions live in ``deflate_pack.py``.
 
 32-bit words cross the kernel interface as int32 tensors holding the
 uint32 bit pattern (torch has no full uint32 arithmetic). The plain
@@ -53,7 +61,8 @@ import torch
 LAUNCHES = {"candidate_search": 0, "parse_scan": 0, "pack_rows": 0,
             "huffman_lookup": 0, "symbol_histogram": 0, "lz4_pack_rows": 0,
             "lane_gather": 0, "sublane_gather": 0, "roll_sum": 0,
-            "bitonic128": 0, "lz4_resolve_refs": 0, "crc32_rows": 0}
+            "bitonic128": 0, "lz4_resolve_refs": 0, "crc32_rows": 0,
+            "search_inputs": 0, "parse_inputs": 0, "symbol_planes": 0}
 
 #: the kernel extension module once loaded (``kernels()``); a wrapper
 #: reads it as ``_ext or kernels()``, so no lock is taken after the load

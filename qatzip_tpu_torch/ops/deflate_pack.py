@@ -26,9 +26,12 @@ dynamic packer runs in two passes around a host step: pass 1
 kernel ``symbol_histogram`` (TPU kernel k4); the host builds both
 length-limited trees and the block header (``native.dyn_plan``); pass 2
 (:func:`deflate_pack_dynamic`) resolves every position's codes with the
-CUDA kernel ``huffman_lookup`` (TPU kernel k3) and packs. A match emits
-its length part at p and its distance part at p + 1 (a match covers at
-least 4 positions), so every emission fits 32 bits.
+CUDA kernel ``huffman_lookup`` (TPU kernel k3) and packs. Both passes'
+symbol planes come from the CUDA kernel ``symbol_planes`` (XLA ops in
+the JAX package; plain versions :func:`hist_symbols` and
+:func:`lookup_symbols`). A match emits its length part at p and its
+distance part at p + 1 (a match covers at least 4 positions), so every
+emission fits 32 bits.
 
 Dtypes: emissions and words are carried in int64 below 2^32 (torch on
 the CPU has no uint32 shifts), and cross the kernels as int32 bit
@@ -202,7 +205,7 @@ def deflate_analyze_hist(data: torch.Tensor, lengths: torch.Tensor, *,
     ml, dist, taken, lit = _analyze_planes(
         data, lengths, n=n, parse_seg=parse_seg, ctx_words=ctx_words,
         probes=probes, search_seg=search_seg, search_overlap=search_overlap)
-    sym, dsym_m = hist_symbols(data, ml, dist, taken, lit)
+    sym, dsym_m = symbol_planes(data, ml, dist, taken, lit, mode=1)
     return symbol_histogram(sym, dsym_m), ml, dist, taken, lit
 
 
@@ -214,6 +217,55 @@ def lookup_symbols(data, ml, dist, taken, lit):
     dsym, _ed, _dx = _dist_symbol(dist)
     return (sym.to(torch.int32).contiguous(),
             dsym.to(torch.int32).contiguous())
+
+
+def symbol_planes_ref(data, ml, dist, taken, lit, *, mode: int):
+    """Plain version of :func:`symbol_planes` (same arguments):
+    :func:`hist_symbols` (mode 1) or :func:`lookup_symbols` (mode 2)."""
+    return (hist_symbols if mode == 1 else lookup_symbols)(
+        data, ml, dist, taken, lit)
+
+
+def symbol_planes(data, ml, dist, taken, lit, *, mode: int):
+    """The dynamic pack's (sym, dsym) planes, (B, n) int32, in one pass.
+
+    Mode 1, pass 1's form (:func:`hist_symbols`, as ``symbol_histogram``
+    counts them): sym the length symbol where taken, the byte where lit,
+    else 320; dsym 286 + the distance symbol where taken, else 320. Mode
+    2, pass 2's form (:func:`lookup_symbols`, as ``huffman_lookup`` reads
+    them): sym as in mode 1 with 286 where nothing is emitted; dsym the
+    distance symbol everywhere.
+
+    Args:
+      data: (B, n) uint8; ml, dist: (B, n) int32; taken, lit: (B, n) bool.
+    """
+    if mode not in (1, 2):
+        raise ValueError(f"mode {mode} is 1 (pass 1) or 2 (pass 2)")
+    shape = ml.shape
+    if len(shape) != 2:
+        raise ValueError(f"ml must be (B, n), got {tuple(shape)}")
+    b, n = shape
+    dev = _device(ml)
+    for t, what, dtype in ((data, "data", torch.uint8),
+                           (ml, "ml", torch.int32),
+                           (dist, "dist", torch.int32),
+                           (taken, "taken", torch.bool),
+                           (lit, "lit", torch.bool)):
+        if t.shape != shape:
+            raise ValueError(f"{what} shape {tuple(t.shape)} != {(b, n)}")
+        _require(t, what, dtype, dev)
+    if dev < 0:
+        return symbol_planes_ref(data, ml, dist, taken, lit, mode=mode)
+    sym = torch.empty_like(ml)
+    dsym = torch.empty_like(ml)
+    if b == 0 or n == 0:
+        return sym, dsym
+    k = cp._ext or cp.kernels()
+    k.symbol_planes(data.data_ptr(), ml.data_ptr(), dist.data_ptr(),
+                    taken.data_ptr(), lit.data_ptr(), sym.data_ptr(),
+                    dsym.data_ptr(), b, n, mode, k.stream(dev))
+    count_launch("symbol_planes")
+    return sym, dsym
 
 
 def _shift1(x: torch.Tensor) -> torch.Tensor:
@@ -375,7 +427,7 @@ def deflate_pack_dynamic(data: torch.Tensor, ml, dist, taken, lit,
     (B,) int32 WITHOUT the EOB, which the host appends)."""
     if max_words == 0:
         max_words = (n * DYN_LIMIT + 4096 + 31) // 32 + 2
-    sym, dsym = lookup_symbols(data, ml, dist, taken, lit)
+    sym, dsym = symbol_planes(data, ml, dist, taken, lit, mode=2)
     lpack, dpack = huffman_lookup(lit_pack, dist_pack, sym, dsym)
     return pack_rows(ml, dist, taken, lit, hdr_bits.to(torch.int32),
                      max_words=max_words, lpack=lpack, dpack=dpack)

@@ -8,6 +8,8 @@ end rules before the parse).
   2. hash          — (w4 * 2654435761) mod 2^32 >> (32 - hb); positions
                      too close to the row end go to the overflow bucket
                      1 << hb
+     (1 and 2 cut into the search's windows are the CUDA kernel
+     ``search_inputs``)
   3. candidates    — the CUDA kernel ``candidate_search`` (the port of
                      TPU kernel k2) over overlapped power-of-two windows,
                      or over the whole row when n <= 8192; the full-row
@@ -17,9 +19,17 @@ end rules before the parse).
                      plain torch, as the JAX package runs it in plain XLA
   4. extension     — saturation doubling of saturated matches
   5. lazy demotion, parse-segment trimming, the LZ4 end rules
+     (4 and 5 from either form of the candidates are the CUDA kernel
+     ``parse_inputs``)
   6. parse         — the CUDA kernel ``parse_scan``
   7. literal runs and compaction — plain torch ops, as they were plain
      XLA ops in the JAX package
+
+The JAX package's XLA fused stages 1-2 and 4-5 into a few programs; in
+eager torch they were ~170 operations a tile, each its own launch, so
+they are hand kernels here, each with its plain version beside it
+(``search_inputs_ref``, ``parse_inputs_ref``), which the wrappers run for
+CPU tensors.
 
 Output tokens are packed uint32 (carried as int32 bit patterns):
   match:        bit31=1, match length in bits [16,31), (dist-1) in [0,16)
@@ -43,7 +53,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .cuda_pack import _as_i32, candidate_search, parse_scan
+from . import cuda_pack as cp
+from .cuda_pack import (_as_i32, _device, _require, candidate_search,
+                        count_launch, parse_scan)
 
 HASH_MUL = 2654435761
 TOK_MATCH_BIT = -(1 << 31)          # bit 31 as an int32 bit pattern
@@ -72,6 +84,13 @@ def _hash(w4: torch.Tensor, hb: int) -> torch.Tensor:
     return prod >> (32 - hb)
 
 
+def _search_bits(width: int):
+    """(pbits, hb) of a search over ``width`` positions: the sort key is
+    (hash << pbits) | relpos with the overflow bucket at 1 << hb."""
+    pbits = max((width - 1).bit_length(), 1)
+    return pbits, min(18, 31 - pbits)
+
+
 def _hashed_context(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
                     min_match: int, ctx_words: int, width: int):
     """The context words (ctx_words, B, n) int64 and the hash plane (B, n)
@@ -95,10 +114,100 @@ def _hashed_context(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
     ctx = torch.stack([word4(4 * k) for k in range(ctx_words)])
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     hashable = (iota + min_match) <= lengths[:, None]
-    pbits = max((width - 1).bit_length(), 1)
-    hb = min(18, 31 - pbits)
+    pbits, hb = _search_bits(width)
     h = torch.where(hashable, _hash(ctx[0], hb), 1 << hb)
     return ctx, h, pbits, hb
+
+
+def _search_layout(width: int, overlap: int, n: int):
+    """(own, nwin, pad_r) of windows of ``width`` positions that overlap
+    by ``overlap`` over a row of n: the padded layout is [overlap
+    synthetic] + row + [pad_r synthetic]; window k covers padded [k*own,
+    k*own + width) and owns its last ``own`` slots."""
+    own = width - overlap
+    nwin = -(-n // own)
+    return own, nwin, (nwin - 1) * own + width - overlap - n
+
+
+def search_inputs_ref(data: torch.Tensor, lengths: torch.Tensor, *,
+                      min_match: int, ctx_words: int, width: int,
+                      overlap: int):
+    """Plain version of :func:`search_inputs` (same arguments): the
+    hashed context of the rows, cut into overlapped windows."""
+    dev = data.device
+    b, n = data.shape
+    ctx, h, pbits, hb = _hashed_context(data, lengths, n=n,
+                                        min_match=min_match,
+                                        ctx_words=ctx_words, width=width)
+    # synthetic pads go to the overflow bucket
+    own, nwin, pad_r = _search_layout(width, overlap, n)
+
+    def windows(x, fill):
+        lead = x.shape[:-1]
+        xp = torch.cat([torch.full((*lead, overlap), fill, dtype=x.dtype,
+                                   device=dev), x,
+                        torch.full((*lead, pad_r), fill, dtype=x.dtype,
+                                   device=dev)], dim=-1)
+        return xp.unfold(-1, width, own).reshape(*lead[:-1], b * nwin,
+                                                  width)
+
+    relpos = torch.arange(width, dtype=torch.int64, device=dev)
+    key = _as_i32((windows(h, 1 << hb) << pbits) | relpos).contiguous()
+    return key, _as_i32(windows(ctx, 0)).contiguous()
+
+
+def search_inputs(data: torch.Tensor, lengths: torch.Tensor, *,
+                  min_match: int, ctx_words: int, width: int, overlap: int):
+    """The candidate search's window rows of a (B, n) batch, as
+    :func:`candidate_search` takes them.
+
+    Args:
+      data: (B, n) uint8, n <= 65536.
+      lengths: (B,) int32 valid bytes per row.
+      width, overlap: windows of ``width`` positions at stride ``width -
+            overlap`` (0 <= overlap < width), the first ``overlap`` slots
+            before the row; ``width`` = n and ``overlap`` = 0 search the
+            whole row.
+    Returns:
+      key: (B * nwin, width) int32 holding uint32 (h << pbits) | relpos,
+           h the hash of the position's first context word, or the
+           overflow bucket 1 << hb where fewer than ``min_match`` bytes
+           of the row are left and for slots outside the row (pbits, hb
+           as :func:`_search_bits` gives them);
+      ctx: (ctx_words, B * nwin, width) int32 context words, little-endian
+           uint32 of bytes p + 4c .. p + 4c + 3 (zero past n and outside
+           the row).
+    """
+    if data.dim() != 2:
+        raise ValueError(f"data must be (B, n), got {tuple(data.shape)}")
+    b, n = data.shape
+    if n > 65536:
+        raise ValueError(f"row length {n} > 65536 (16-bit position field)")
+    if not 0 <= overlap < width:
+        raise ValueError(f"overlap {overlap} outside 0..{width - 1}")
+    if not (1 <= ctx_words <= 4 and 1 <= min_match <= 16):
+        raise ValueError("ctx_words 1..4, min_match 1..16")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths shape {tuple(lengths.shape)} != {(b,)}")
+    dev = _device(data)
+    _require(data, "data", torch.uint8, dev)
+    _require(lengths, "lengths", torch.int32, dev)
+    if dev < 0:
+        return search_inputs_ref(data, lengths, min_match=min_match,
+                                 ctx_words=ctx_words, width=width,
+                                 overlap=overlap)
+    _own, nwin, _pad = _search_layout(width, overlap, n)
+    key = data.new_empty((b * nwin, width), dtype=torch.int32)
+    ctx = data.new_empty((ctx_words, b * nwin, width), dtype=torch.int32)
+    if b == 0 or n == 0:
+        return key, ctx
+    pbits, hb = _search_bits(width)
+    k = cp._ext or cp.kernels()
+    k.search_inputs(data.data_ptr(), lengths.data_ptr(), key.data_ptr(),
+                    ctx.data_ptr(), b, n, width, overlap, ctx_words,
+                    min_match, pbits, hb, k.stream(dev))
+    count_launch("search_inputs")
+    return key, ctx
 
 
 def _search_inputs(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
@@ -108,11 +217,10 @@ def _search_inputs(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
     windows of ``search_seg``, or the whole row when it is not below n
     (n <= MAX_WINDOW).
 
-    Returns (key, ctx, pbits, unwindow): key (B*nwin, W) and ctx
-    (ctx_words, B*nwin, W) as the kernel takes them, and a function that
-    maps the kernel's (B*nwin, W) output back to (B, n) row order."""
-    dev = data.device
-    b = data.shape[0]
+    Returns (key, ctx, pbits, overlap): key (B*nwin, W) and ctx
+    (ctx_words, B*nwin, W) as the kernel takes them (:func:`search_inputs`),
+    and the windows' overlap, which :func:`parse_inputs` takes with the
+    kernel's output."""
     segmented = 0 < search_seg < n
     if not segmented and n > MAX_WINDOW:
         raise ValueError(f"a row of {n} is searched whole by "
@@ -121,32 +229,18 @@ def _search_inputs(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
         else (n, 0)
     if window < W:
         raise ValueError(f"window {window} must cover the search width {W}")
-    ctx, h, pbits, hb = _hashed_context(data, lengths, n=n,
-                                        min_match=min_match,
-                                        ctx_words=ctx_words, width=W)
+    key, ctx = search_inputs(data, lengths, min_match=min_match,
+                             ctx_words=ctx_words, width=W, overlap=ov)
+    return key, ctx, _search_bits(W)[0], ov
 
-    # overlapped power-of-two windows: padded layout [ov synthetic] + row +
-    # [right pad]; window k covers padded [k*own, k*own + W) and owns its
-    # last `own` slots. Synthetic pads go to the overflow bucket.
-    own = W - ov
-    nwin = -(-n // own)
-    pad_r = (nwin - 1) * own + W - ov - n
 
-    def windows(x, fill):
-        lead = x.shape[:-1]
-        xp = torch.cat([torch.full((*lead, ov), fill, dtype=x.dtype,
-                                   device=dev), x,
-                        torch.full((*lead, pad_r), fill, dtype=x.dtype,
-                                   device=dev)], dim=-1)
-        return xp.unfold(-1, W, own).reshape(*lead[:-1], b * nwin, W)
-
-    def unwindow(kv):
-        # trim each window's overlap, then the row's right pad
-        return kv.reshape(b, nwin, W)[:, :, ov:].reshape(b, nwin * own)[:, :n]
-
-    relpos = torch.arange(W, dtype=torch.int64, device=dev)
-    key = _as_i32((windows(h, 1 << hb) << pbits) | relpos).contiguous()
-    return key, _as_i32(windows(ctx, 0)).contiguous(), pbits, unwindow
+def _unwindow(kv: torch.Tensor, b: int, n: int, overlap: int):
+    """The search kernel's (B*nwin, W) output in (B, n) row order: each
+    window's overlap trimmed, then the row's right pad."""
+    w = kv.shape[1]
+    nwin = kv.shape[0] // b
+    return kv.reshape(b, nwin, w)[:, :, overlap:].reshape(
+        b, nwin * (w - overlap))[:, :n]
 
 
 def _full_row_search(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
@@ -221,8 +315,8 @@ def _parse_inputs(lengths, ml, dist, *, n, min_match, max_match, ctx_bytes,
     """Extension, lazy demotion, parse-segment trimming and, with
     ``lz4_rules``, the LZ4 block end rules (no match starts within the
     last 12 bytes, the last 5 are literals: the demotions the host
-    ``lz4_pack`` makes token by token) of the raw candidates. Returns
-    (is_match, ml, dist, seg), the parse's inputs."""
+    ``lz4_pack`` makes token by token) of the raw candidates, in row
+    order. Returns (is_match, ml, dist), the parse's inputs."""
     iota = torch.arange(n, dtype=torch.int32, device=ml.device)
     p = (ml << 16) | (dist - 1)
     p = _extend_matches(p, cap0=ctx_bytes, max_match=max_match,
@@ -250,24 +344,156 @@ def _parse_inputs(lengths, ml, dist, *, n, min_match, max_match, ctx_bytes,
         is_match = (is_match & (iota <= lengths[:, None] - 12)
                     & (ml >= min_match))
         ml = torch.where(is_match, ml, 0)
-    return is_match.contiguous(), ml.contiguous(), dist, seg
+    return is_match.contiguous(), ml.contiguous(), dist
+
+
+#: positions past its span one launch of ``parse_inputs`` reads: the
+#: caps of the extension rounds it runs in shared memory, and one for the
+#: lazy demotion when it ends the stage (``csrc/parse_inputs.cu``)
+PARSE_MAX_HALO = 2048
+
+
+def parse_inputs_launches(*, n: int, max_match: int, ctx_bytes: int):
+    """The launches of :func:`parse_inputs` on the card, in order, as
+    (cap, rounds, ends): each runs ``rounds`` extension rounds from cap
+    ``cap`` on, and the last ends the stage. One launch where the caps
+    the extension takes (``ctx_bytes`` doubling while below ``max_match``
+    and n) sum to less than PARSE_MAX_HALO; else the first rounds that
+    fit in one, then one a round."""
+    caps = []
+    cap = ctx_bytes
+    while cap < max_match and cap < n:
+        caps.append(cap)
+        cap *= 2
+    if sum(caps) + 1 <= PARSE_MAX_HALO:
+        return [(ctx_bytes, len(caps), True)]
+    j = len(caps)
+    while sum(caps[:j]) > PARSE_MAX_HALO:
+        j -= 1
+    plan = [(ctx_bytes, j, False)]
+    plan += [(c, 1, False) for c in caps[j:]]
+    if len(plan) == 1:
+        plan.append((ctx_bytes, 0, True))
+    else:
+        plan[-1] = (plan[-1][0], 1, True)
+    return plan
+
+
+def parse_inputs_ref(lengths: torch.Tensor, *, n: int, kv=None,
+                     overlap: int = 0, ml=None, dist=None, min_match: int,
+                     max_match: int, ctx_bytes: int, parse_seg: int,
+                     lz4_rules: bool = False):
+    """Plain version of :func:`parse_inputs` (same arguments): the search
+    kernel's windows back in row order and unpacked, then
+    :func:`_parse_inputs`."""
+    if kv is not None:
+        kv = _unwindow(kv, lengths.shape[0], n, overlap)
+        ml, dist = (kv >> 13) & 0x1F, (kv & 0x1FFF) + 1
+    return _parse_inputs(lengths, ml, dist, n=n, min_match=min_match,
+                         max_match=max_match, ctx_bytes=ctx_bytes,
+                         parse_seg=parse_seg, lz4_rules=lz4_rules)
+
+
+def parse_inputs(lengths: torch.Tensor, *, n: int, kv=None,
+                 overlap: int = 0, ml=None, dist=None, min_match: int,
+                 max_match: int, ctx_bytes: int, parse_seg: int,
+                 lz4_rules: bool = False):
+    """The parse's inputs from the raw candidates: the saturation-doubling
+    extension from cap ``ctx_bytes``, the clamp to the row, the lazy
+    demotion, the trim at ``parse_seg`` ends and, with ``lz4_rules``, the
+    LZ4 block end rules (:func:`_parse_inputs`).
+
+    Args:
+      lengths: (B,) int32 valid bytes per row; n the row width (<= 65536).
+      kv, overlap: the candidates as :func:`candidate_search` gives them,
+            (B*nwin, W) int32 in windows that overlap by ``overlap``
+            (:func:`_search_inputs`); or
+      ml, dist: the candidates in row order, (B, n) int32 (the full-row
+            search).
+      max_match: below 32768 (the packed plane's length half).
+    Returns:
+      (is_match (B, n) bool, ml (B, n) int32, dist (B, n) int32), as
+      :func:`parse_scan` takes them with seg = min(parse_seg, n).
+
+    On the card: the launches of :func:`parse_inputs_launches`.
+    """
+    if lengths.dim() != 1:
+        raise ValueError(f"lengths must be (B,), got {tuple(lengths.shape)}")
+    b = lengths.shape[0]
+    if (kv is None) == (ml is None) or (ml is None) != (dist is None):
+        raise ValueError("parse_inputs takes kv (windows) or ml and dist "
+                         "(rows)")
+    if not (1 <= n <= 65536 and 1 <= min_match <= max_match < 32768
+            and parse_seg >= 1 and 1 <= ctx_bytes < PARSE_MAX_HALO):
+        raise ValueError("n 1..65536, 1 <= min_match <= max_match < 32768, "
+                         "parse_seg >= 1, ctx_bytes 1..2047")
+    dev = _device(lengths)
+    _require(lengths, "lengths", torch.int32, dev)
+    w = 0
+    if kv is not None:
+        if kv.dim() != 2:
+            raise ValueError(f"kv must be (rows, W), got {tuple(kv.shape)}")
+        w = kv.shape[1]
+        if not 0 <= overlap < w:
+            raise ValueError(f"overlap {overlap} outside 0..{w - 1}")
+        nwin = _search_layout(w, overlap, n)[1]
+        if kv.shape[0] != b * nwin:
+            raise ValueError(f"kv has {kv.shape[0]} rows, not {b} x {nwin} "
+                             "windows")
+        _require(kv, "kv", torch.int32, dev)
+    else:
+        for t, what in ((ml, "ml"), (dist, "dist")):
+            if tuple(t.shape) != (b, n):
+                raise ValueError(f"{what} shape {tuple(t.shape)} != "
+                                 f"{(b, n)}")
+            _require(t, what, torch.int32, dev)
+    if dev < 0:
+        return parse_inputs_ref(lengths, n=n, kv=kv, overlap=overlap, ml=ml,
+                                dist=dist, min_match=min_match,
+                                max_match=max_match, ctx_bytes=ctx_bytes,
+                                parse_seg=parse_seg, lz4_rules=lz4_rules)
+    is_match = torch.empty((b, n), dtype=torch.bool, device=lengths.device)
+    ml_out = torch.empty((b, n), dtype=torch.int32, device=lengths.device)
+    dist_out = torch.empty_like(ml_out)
+    if b == 0:
+        return is_match, ml_out, dist_out
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    k = cp._ext or cp.kernels()
+    p_in = None
+    for cap, rounds, ends in parse_inputs_launches(
+            n=n, max_match=max_match, ctx_bytes=ctx_bytes):
+        p_out = None if ends else torch.empty_like(ml_out)
+        k.parse_inputs(ptr(kv), ptr(ml), ptr(dist), ptr(p_in),
+                       lengths.data_ptr(), ptr(p_out), is_match.data_ptr(),
+                       ml_out.data_ptr(), dist_out.data_ptr(), b, n, w,
+                       overlap, cap, rounds, min_match, max_match,
+                       min(parse_seg, n), int(lz4_rules), k.stream(dev))
+        count_launch("parse_inputs")
+        kv = ml = dist = None
+        p_in = p_out
+    return is_match, ml_out, dist_out
 
 
 def _candidates(data, lengths, *, n, min_match, window, ctx_words, probes,
                 search_seg, search_overlap):
-    """The raw candidates (ml, dist), (B, n) int32: the full-row search
-    for whole rows over MAX_WINDOW, else the kernel's windows."""
+    """The raw candidates, as :func:`parse_inputs` takes them: ``ml`` and
+    ``dist`` (B, n) int32 in row order from the full-row search for whole
+    rows over MAX_WINDOW, else ``kv`` and ``overlap``, the search
+    kernel's windows."""
     if not 0 < search_seg < n and n > MAX_WINDOW:
-        return _full_row_search(data, lengths, n=n, min_match=min_match,
-                                window=window, ctx_words=ctx_words,
-                                probes=probes)
-    key, ctx, pbits, unwindow = _search_inputs(
+        ml, dist = _full_row_search(data, lengths, n=n, min_match=min_match,
+                                    window=window, ctx_words=ctx_words,
+                                    probes=probes)
+        return dict(ml=ml, dist=dist)
+    key, ctx, pbits, ov = _search_inputs(
         data, lengths, n=n, min_match=min_match, window=window,
         ctx_words=ctx_words, search_seg=search_seg,
         search_overlap=search_overlap)
-    kv = unwindow(candidate_search(key, ctx, probes=probes,
-                                   min_match=min_match, pbits=pbits))
-    return (kv >> 13) & 0x1F, (kv & 0x1FFF) + 1
+    kv = candidate_search(key, ctx, probes=probes, min_match=min_match,
+                          pbits=pbits)
+    return dict(kv=kv, overlap=ov)
 
 
 def _analyze(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
@@ -280,14 +506,13 @@ def _analyze(data: torch.Tensor, lengths: torch.Tensor, *, n: int,
     JAX sort route leaves other values there; every consumer reads dist
     only where ml > 0)."""
     lengths = lengths.to(torch.int32)
-    ml, dist = _candidates(data, lengths, n=n, min_match=min_match,
-                           window=window, ctx_words=ctx_words, probes=probes,
-                           search_seg=search_seg,
-                           search_overlap=search_overlap)
-    is_match, ml, dist, seg = _parse_inputs(
-        lengths, ml, dist, n=n, min_match=min_match, max_match=max_match,
+    cand = _candidates(data, lengths, n=n, min_match=min_match,
+                       window=window, ctx_words=ctx_words, probes=probes,
+                       search_seg=search_seg, search_overlap=search_overlap)
+    is_match, ml, dist = parse_inputs(
+        lengths, n=n, **cand, min_match=min_match, max_match=max_match,
         ctx_bytes=4 * ctx_words, parse_seg=parse_seg, lz4_rules=lz4_rules)
-    taken, lit = parse_scan(is_match, ml, seg)
+    taken, lit = parse_scan(is_match, ml, min(parse_seg, n))
     iota = torch.arange(n, dtype=torch.int32, device=data.device)
     valid = iota < lengths[:, None]
     return iota.expand_as(ml), ml, dist, taken, lit & valid, valid

@@ -15,6 +15,7 @@ import torch
 from qatzip_tpu_torch.ops import cuda_pack
 from qatzip_tpu_torch.ops import deflate_pack as dp
 from qatzip_tpu_torch.ops import lz4_pack as lp
+from qatzip_tpu_torch.ops import lz77
 from qatzip_tpu_torch.parallel.dispatch import _tok_knobs, plan_tile
 
 pytestmark = pytest.mark.cuda
@@ -846,6 +847,28 @@ def _card_calls(kernel):
             4096))
         return (lambda r: ld.resolve_refs(r, 13),
                 lambda r: ld.resolve_refs_ref(r, 13), [planes])
+    if kernel == "search_inputs":
+        kw = dict(min_match=4, ctx_words=3, width=256, overlap=64)
+        return (lambda d, ln: lz77.search_inputs(d, ln, **kw),
+                lambda d, ln: lz77.search_inputs_ref(d, ln, **kw),
+                list(stage_rows("corpus", 1024)))
+    if kernel == "parse_inputs":
+        data, lengths = stage_rows("corpus", 1024)
+        key, ctx, pbits, ov = lz77._search_inputs(
+            data, lengths, n=1024, min_match=4, window=32768, ctx_words=3,
+            search_seg=256, search_overlap=64)
+        kv = cuda_pack.candidate_search_ref(key, ctx, probes=7, min_match=4,
+                                            pbits=pbits)
+        kw = dict(n=1024, overlap=ov, min_match=4, max_match=258,
+                  ctx_bytes=12, parse_seg=512)
+        return (lambda ln, k: lz77.parse_inputs(ln, kv=k, **kw),
+                lambda ln, k: lz77.parse_inputs_ref(ln, kv=k, **kw),
+                [lengths, kv])
+    if kernel == "symbol_planes":
+        host = [torch.from_numpy(np.ascontiguousarray(a))
+                for a in pack_plane("run-258", 2, 1024)]
+        return (lambda *t: dp.symbol_planes(*t, mode=1),
+                lambda *t: dp.symbol_planes_ref(*t, mode=1), host)
     if kernel == "crc32_rows":
         from qatzip_tpu_torch.ops import crc32_mxu as cm
         return (lambda d: cm.crc32_batch_device(d, n=3000),
@@ -1583,3 +1606,195 @@ def test_cnv_on_card_keeps_the_bytes(card, monkeypatch, route):
                                          if v[6]))
 def test_cnv_on_card_recovers_a_device_fault(card, monkeypatch, route):
     cnv_recovers_a_device_fault(card, monkeypatch, route)
+
+
+# ---------------------------------------------------------------------------
+# the stage kernels around the search and the parse, and the dynamic
+# pack's symbol planes
+# ---------------------------------------------------------------------------
+
+STAGE_KINDS = ("random", "zero", "A", "periodic", "corpus")
+STAGE_WIDTHS = (256, 4096, 8192, 65536)
+#: (lz4_rules, max_match): DEFLATE, the LZ4 device pack, LZ4 and LZ4s on
+#: the token path
+STAGE_RULES = ((False, 258), (True, 273), (True, 32767), (False, 32767))
+
+
+def stage_rows(kind, n, seed=0):
+    """(data, lengths) CPU tensors: nine rows of ``kind`` zeroed past the
+    ragged lengths 0, 1, 3, 4, 11, 12, 13, n - 1 and n."""
+    from corpus import make_silesia_like   # tests/ is on sys.path
+    rng = np.random.default_rng(seed)
+    lengths = np.array([0, 1, 3, 4, 11, 12, 13, n - 1, n], np.int32)
+    b = len(lengths)
+    if kind == "random":
+        data = rng.integers(0, 256, (b, n), dtype=np.uint8)
+    elif kind == "zero":
+        data = np.zeros((b, n), np.uint8)
+    elif kind == "A":
+        data = np.full((b, n), 65, np.uint8)
+    elif kind == "periodic":
+        unit = rng.integers(0, 256, 37, dtype=np.uint8)
+        data = np.tile(unit, (b, n // 37 + 1))[:, :n].copy()
+    elif kind == "corpus":
+        blob = make_silesia_like(max(1, b * n >> 20))
+        data = np.frombuffer(blob[:b * n], np.uint8).reshape(b, n).copy()
+    else:
+        raise ValueError(kind)
+    for i, ln in enumerate(lengths):
+        data[i, ln:] = 0
+    return torch.from_numpy(data), torch.from_numpy(lengths)
+
+
+def _searches(n):
+    """The search_seg values whose windows the kernel serves at n: the
+    level-1 8K windows over rows wider than 8192, else the whole row."""
+    return (8192,) if n > lz77.MAX_WINDOW else (0, 8192)
+
+
+@pytest.mark.parametrize("kind", STAGE_KINDS)
+@pytest.mark.parametrize("n", STAGE_WIDTHS)
+def test_search_inputs_kernel_matches_plain(card, n, kind):
+    data, lengths = stage_rows(kind, n, seed=n)
+    for ctx_words in (3, 4):
+        for ss in _searches(n):
+            kw = dict(n=n, min_match=4, window=32768, ctx_words=ctx_words,
+                      search_seg=ss, search_overlap=896)
+            want = lz77._search_inputs(data, lengths, **kw)
+            before = cuda_pack.LAUNCHES["search_inputs"]
+            got = lz77._search_inputs(data.to(card), lengths.to(card), **kw)
+            torch.cuda.synchronize()
+            assert cuda_pack.LAUNCHES["search_inputs"] == before + 1
+            assert got[2:] == want[2:]
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("kind", STAGE_KINDS)
+@pytest.mark.parametrize("n", STAGE_WIDTHS)
+def test_parse_inputs_kernel_matches_plain(card, n, kind):
+    """Both candidate forms (the search kernel's windows, the full-row
+    search's rows), ctx_words 3 and 4, every route's rules; the launches
+    are those of ``parse_inputs_launches``."""
+    data, lengths = stage_rows(kind, n, seed=n + 1)
+    dd, ll = data.to(card), lengths.to(card)
+    for ctx_words in (3, 4):
+        for ss in (0, 8192):
+            cand = lz77._candidates(dd, ll, n=n, min_match=4, window=32768,
+                                    ctx_words=ctx_words, probes=7,
+                                    search_seg=ss, search_overlap=896)
+            host = {k: v.cpu() if torch.is_tensor(v) else v
+                    for k, v in cand.items()}
+            for lz4_rules, max_match in STAGE_RULES:
+                kw = dict(n=n, min_match=4, max_match=max_match,
+                          ctx_bytes=4 * ctx_words, parse_seg=8192,
+                          lz4_rules=lz4_rules)
+                want = lz77.parse_inputs_ref(lengths, **host, **kw)
+                before = cuda_pack.LAUNCHES["parse_inputs"]
+                got = lz77.parse_inputs(ll, **cand, **kw)
+                torch.cuda.synchronize()
+                assert cuda_pack.LAUNCHES["parse_inputs"] == before + len(
+                    lz77.parse_inputs_launches(n=n, max_match=max_match,
+                                               ctx_bytes=4 * ctx_words))
+                assert all(torch.equal(g.cpu(), w)
+                           for g, w in zip(got, want)), (ctx_words, ss,
+                                                         max_match)
+
+
+@pytest.mark.parametrize("kind", STAGE_KINDS)
+@pytest.mark.parametrize("n", STAGE_WIDTHS)
+def test_symbol_planes_kernel_matches_plain(card, n, kind):
+    """Both modes on the level-1 parse's planes of the rows, and on odd
+    planes (lengths and distances outside DEFLATE's, overlapping taken
+    and lit)."""
+    data, lengths = stage_rows(kind, n, seed=n + 2)
+    ss, ov, _cs, ctx_words, probes = _tok_knobs(1, n)
+    planes = dp._analyze_planes(data.to(card), lengths.to(card), n=n,
+                                parse_seg=8192, ctx_words=ctx_words,
+                                probes=probes, search_seg=ss,
+                                search_overlap=ov)
+    rng = np.random.default_rng(n)
+    b = data.shape[0]
+    odd = [torch.from_numpy(rng.integers(-40000, 70000, (b, n)).astype(
+        np.int32)), torch.from_numpy(rng.integers(-5, 1 << 25, (b, n)).astype(
+            np.int32)), torch.from_numpy(rng.random((b, n)) < 0.4),
+        torch.from_numpy(rng.random((b, n)) < 0.4)]
+    for p in (list(planes), odd):
+        host = [data] + [t.cpu() for t in p]
+        on_card = [data.to(card)] + [t.to(card) for t in p]
+        for mode in (1, 2):
+            want = dp.symbol_planes_ref(*host, mode=mode)
+            before = cuda_pack.LAUNCHES["symbol_planes"]
+            got = dp.symbol_planes(*on_card, mode=mode)
+            torch.cuda.synchronize()
+            assert cuda_pack.LAUNCHES["symbol_planes"] == before + 1
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def _plain_glue_refused(monkeypatch):
+    """Make every plain version of the three stage kernels, and the torch
+    stages they stand for, raise when it meets a CUDA tensor."""
+    def guard(fn):
+        def call(*args, **kwargs):
+            if any(torch.is_tensor(a) and a.is_cuda
+                   for a in (*args, *kwargs.values())):
+                raise AssertionError(f"{fn.__name__} ran on the card")
+            return fn(*args, **kwargs)
+        return call
+    for mod, name in ((lz77, "search_inputs_ref"),
+                      (lz77, "parse_inputs_ref"), (lz77, "_parse_inputs"),
+                      (lz77, "_extend_matches"), (lz77, "_unwindow"),
+                      (dp, "symbol_planes_ref"), (dp, "hist_symbols"),
+                      (dp, "lookup_symbols")):
+        monkeypatch.setattr(mod, name, guard(getattr(mod, name)))
+
+
+@pytest.mark.parametrize("mib", [0, 64], ids=["64k", "64m"])
+@pytest.mark.parametrize("route", ["dynamic", "static", "lz4"])
+def test_stage_kernels_on_the_device_packs(card, monkeypatch, route, mib):
+    """A 64 KiB and a 64 MiB request on each device pack: no plain stage
+    runs on the card, ``search_inputs`` and ``parse_inputs`` launch once
+    a tile (the LZ4 pack's full-row search takes no windows) and
+    ``symbol_planes`` twice a dynamic tile, and the bytes equal those of
+    the same request with the plain stages on the card."""
+    import qatzip_tpu_torch as qz
+    from corpus import make_silesia_like   # tests/ is on sys.path
+    from qatzip_tpu_torch.parallel import dispatch
+    data = make_silesia_like(max(mib, 1))[:(mib << 20) or 65536]
+    monkeypatch.setattr(dispatch.CudaEngine, "packs_on_device",
+                        lambda self, s, algorithm="deflate": True)
+
+    def compress():
+        sess = qz.QzSession(device="cuda")
+        if route == "lz4":
+            sess.setup_lz4()
+        else:
+            p = qz.SessionParamsDeflate()
+            if route == "static":
+                p.huffman_hdr = qz.HuffmanHdr.STATIC_HDR
+            sess.setup_deflate(p)
+        out = sess.compress(data)
+        torch.cuda.synchronize()
+        assert sess.decompress(out) == data
+        return out
+
+    with monkeypatch.context() as m:
+        _plain_glue_refused(m)
+        cuda_pack.reset_launch_counts()
+        out = compress()
+        launches = dict(cuda_pack.LAUNCHES)
+    tiles = -(-(len(data) // 65536) // dispatch.TILE_B)
+    assert launches["pack_rows" if route != "lz4" else "lz4_pack_rows"] \
+        == tiles
+    assert launches["search_inputs"] == (0 if route == "lz4" else tiles)
+    assert launches["parse_inputs"] == tiles
+    assert launches["symbol_planes"] == (2 * tiles if route == "dynamic"
+                                         else 0)
+    with monkeypatch.context() as m:
+        m.setattr(lz77, "search_inputs", lz77.search_inputs_ref)
+        m.setattr(lz77, "parse_inputs", lz77.parse_inputs_ref)
+        m.setattr(dp, "symbol_planes", dp.symbol_planes_ref)
+        cuda_pack.reset_launch_counts()
+        plain = compress()
+        assert cuda_pack.LAUNCHES["parse_inputs"] == 0
+    assert plain == out

@@ -205,6 +205,7 @@ def _wrapper_calls():
     from qatzip_tpu_torch.ops import deflate_pack as dp
     from qatzip_tpu_torch.ops import lz4_decode as ld
     from qatzip_tpu_torch.ops import lz4_pack as lp
+    from qatzip_tpu_torch.ops import lz77 as lz
 
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype)
@@ -251,6 +252,20 @@ def _wrapper_calls():
                        [z(2, 256, dtype=torch.uint8)],
                        [[z(2, 128, dtype=torch.uint8)],
                         [z(256, dtype=torch.uint8)]]),
+        "search_inputs": (
+            lambda d, ln: lz.search_inputs(d, ln, min_match=4, ctx_words=3,
+                                           width=128, overlap=32),
+            [z(2, 256, dtype=torch.uint8), z(2)],
+            [[z(2, 256, dtype=torch.uint8), z(3)],
+             [z(2, 2, 256, dtype=torch.uint8), z(2)]]),
+        "parse_inputs": (
+            lambda ln, kv: lz.parse_inputs(ln, kv=kv, overlap=0, n=256,
+                                           min_match=4, max_match=258,
+                                           ctx_bytes=12, parse_seg=8192),
+            [z(2), z(2, 256)],
+            [[z(2), z(3, 256)], [z(2, 1), z(2, 256)]]),
+        "symbol_planes": (lambda *t: dp.symbol_planes(*t, mode=1),
+                          lz4, [lz4[:3] + [z(2, 128, dtype=b8), lz4[4]]]),
     }
 
 
@@ -310,6 +325,14 @@ STUB(qz_lz4_resolve_refs, void* a, void* b, void* c, int d, int e, int f,
      void* s)
 STUB(qz_crc32_rows, const void* a, void* b, const void* c, const void* d,
      int e, int f, int g, void* s)
+STUB(qz_search_inputs, const void* a, const void* b, void* c, void* d, int e,
+     int f, int g, int h, int i, int j, int k, int l, void* s)
+STUB(qz_parse_inputs, const void* a, const void* b, const void* c,
+     const void* d, const void* e, void* f, void* g, void* h, void* i, int j,
+     int k, int l, int m, int n, int o, int p, int q, int r, int t, void* s)
+STUB(qz_symbol_planes, const void* a, const void* b, const void* c,
+     const void* d, const void* e, void* f, void* g, int h, int i, int j,
+     void* s)
 int qz_sublane_gather(const void* x, const void* idx, void* out, int log_r,
                       int log_c, void* s) {
   seen[0] = (intptr_t)x; seen[1] = (intptr_t)idx; seen[2] = (intptr_t)out;
