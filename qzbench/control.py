@@ -2,12 +2,16 @@
 guarantee that the configuration states broken, which the comparison
 that decides ``correct`` has to fail.
 
-The system states no precision; the guarantee broken is the checksum,
-the work a faster program would be tempted to skip: the control writes
-every gzip-ext member with stock zlib at the session's level and a
-CRC32 of 0 in its footer, and every LZ4 frame with its blocks stored and
-an XXH32 content checksum of 0. Everything else (framing, sizes, the
-payloads' bytes) is right.
+The system states no precision; the guarantee broken is the work a
+faster program would be tempted to skip. For gzip-ext and LZ4 that is
+the checksum: the control writes every gzip-ext member with stock zlib
+at the session's level and a CRC32 of 0 in its footer, and every LZ4
+frame with its blocks stored and an XXH32 content checksum of 0. qzstd's
+zstd frames carry no checksum, so for an LZ4s session it is the
+post-process itself: the control returns the session's own framing,
+``[size:u32][LZ4s block]*`` with every block literals alone, and makes
+no zstd frame. Everything else (framing, sizes, the payloads' bytes) is
+right.
 
     python3 qzbench/control.py --workload <cell> --seeds 1,2,3 --seconds 3
 
@@ -35,6 +39,16 @@ if ROOT not in sys.path:
 from qzbench import reference  # noqa: E402
 
 
+def lz4s_literals(chunk: bytes) -> bytes:
+    """An LZ4s block that holds ``chunk`` as one run of literals: the
+    token's high nibble, the length's 255-byte extensions, the bytes."""
+    n = len(chunk)
+    if n < 15:
+        return bytes([n << 4]) + chunk
+    ext = n - 15
+    return bytes([0xF0]) + b"\xff" * (ext // 255) + bytes([ext % 255]) + chunk
+
+
 class ControlSession:
     """``compress`` as the configuration frames it, checksum left out."""
 
@@ -45,6 +59,9 @@ class ControlSession:
 
     def compress(self, data: bytes) -> bytes:
         chunks = reference.chunks_of(bytes(data), self.hw)
+        if self.cfg["algorithm"] == "lz4s":
+            return b"".join(struct.pack("<I", len(b)) + b
+                            for b in map(lz4s_literals, chunks))
         if self.cfg["algorithm"] == "lz4":
             fd = struct.pack("<BBQ", 0x4C, 0x40, len(data))
             parts = [struct.pack("<I", reference.LZ4_MAGIC), fd,

@@ -2,7 +2,9 @@
 reads back from each answer, held against the request's own bytes.
 
 It imports nothing of the program and nothing of the JAX package. DEFLATE
-members are inflated and checksummed by the interpreter's stock zlib; the
+members are inflated and checksummed by the interpreter's stock zlib;
+zstd frames are walked here (RFC 8878) and each decoded by stock
+``libzstd.so.1``, which this module loads itself through ctypes; the
 LZ4 frame is read by a plain LZ4 block decoder and XXH32, frozen copies
 of ``qatzip_tpu_torch/sw/lz4_py.py`` and of ``_xxh32_py`` in
 ``qatzip_tpu_torch/ops/xxhash.py`` at commit 0cd1e03 (the decoder here
@@ -16,23 +18,33 @@ Each answer gets four counts, all with the limit 0:
 * ``frame_errors``: framing that a stock reader would refuse or misread:
   magic, flags, the QZ extra field or the LZ4 descriptor and its header
   checksum, a member or block that does not match its chunk's place and
-  size, bytes past the end;
+  size, bytes past the end; in zstd, a bad magic or header, the reserved
+  bit, a reserved block type, a block past the end, a frame that
+  libzstd refuses for another reason than its checksum, or a content
+  size other than what the frame decodes to;
 * ``checksum_errors``: a member's CRC32 or ISIZE, or the frame's content
   size or XXH32 content checksum, that is not the request's or is left
-  out;
+  out; a zstd frame's checksum, where it carries one, that libzstd finds
+  wrong (qzstd's frames carry none);
 * ``content_errors``: a member or block that does not decode, decodes
   to other bytes than its chunk, or, in LZ4, breaks the block format's
   end rules (the last sequence literals alone, the last 5 bytes
   literals, the last match starting 12 bytes or more before the end);
+  zstd frames whose contents, joined, are not the request's input (a
+  frame dropped, repeated or swapped);
 * ``expanded_chunks``: a DEFLATE payload over QATzip's bound for its
   chunk (``qzMaxCompressedLength``, src/qatzip.c:3175-3211: the chunk,
   an eighth more and a 48-byte skid pad, the bound users size their
-  buffers by), or an LZ4 block coded no smaller than its chunk instead of
-  stored (the frame's rule for a block that does not shrink).
+  buffers by), an LZ4 block coded no smaller than its chunk instead of
+  stored (the frame's rule for a block that does not shrink), or a zstd
+  frame longer than ``ZSTD_COMPRESSBOUND`` of its content (the capacity
+  the post-process gives each block).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import multiprocessing
 import struct
 import zlib
@@ -372,6 +384,138 @@ class _Done:
 
 
 # ---------------------------------------------------------------------------
+# zstd frames (RFC 8878): the frames walked here, each decoded by libzstd
+# ---------------------------------------------------------------------------
+
+ZSTD_MAGIC = 0xFD2FB528
+#: a skippable frame's magic, its low four bits masked off
+ZSTD_SKIPPABLE = 0x184D2A50
+#: the largest block a frame may hold (Block_Maximum_Size's cap)
+ZSTD_BLOCK_MAX = 128 << 10
+#: ``ZSTD_ErrorCode`` values, pinned by zstd since 1.3.1
+ZSTD_CHECKSUM_WRONG = 22
+
+
+def zstd_bound(n: int) -> int:
+    """``ZSTD_COMPRESSBOUND(n)``: the capacity the post-process gives a
+    block of ``n`` bytes, and the most a frame of it may take."""
+    return n + (n >> 8) + (((128 << 10) - n) >> 11 if n < 128 << 10 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def libzstd():
+    """Stock ``libzstd.so.1``, loaded here by its soname (never through
+    the program). Raises OSError where it is not installed: the reader
+    cannot judge, so the run fails."""
+    lib = ctypes.CDLL("libzstd.so.1")
+    lib.ZSTD_decompress.restype = ctypes.c_size_t
+    lib.ZSTD_decompress.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                    ctypes.c_char_p, ctypes.c_size_t]
+    lib.ZSTD_isError.restype = ctypes.c_uint
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_getErrorCode.restype = ctypes.c_int
+    lib.ZSTD_getErrorCode.argtypes = [ctypes.c_size_t]
+    return lib
+
+
+def zstd_frame_header(out: bytes, pos: int):
+    """The header of the zstd frame at ``pos``: (its end, the frame
+    content size or None, whether it carries a checksum). Raises
+    ValueError on a header a stock reader refuses: the magic, the
+    reserved bit, a header cut short."""
+    if (len(out) - pos < 6
+            or struct.unpack_from("<I", out, pos)[0] != ZSTD_MAGIC):
+        raise ValueError("no zstd magic")
+    fhd = out[pos + 4]
+    if fhd & 0x08:
+        raise ValueError("reserved bit of the frame header set")
+    single = fhd & 0x20
+    fcs_len = (1 if single else 0, 2, 4, 8)[fhd >> 6]
+    did_len = (0, 1, 2, 4)[fhd & 3]
+    p = pos + 5 + (0 if single else 1) + did_len
+    if p + fcs_len > len(out):
+        raise ValueError("zstd frame header cut short")
+    fcs = (int.from_bytes(out[p:p + fcs_len], "little")
+           + (256 if fcs_len == 2 else 0)) if fcs_len else None
+    return p + fcs_len, fcs, bool(fhd & 0x04)
+
+
+def zstd_blocks(out: bytes, pos: int):
+    """Walk the blocks from ``pos`` to the frame's last: (their end, the
+    most content they can give). Raises ValueError on a reserved block
+    type, a block over ``ZSTD_BLOCK_MAX``, or one running past the end."""
+    most = 0
+    while True:
+        if pos + 3 > len(out):
+            raise ValueError("zstd block header past the end")
+        h = int.from_bytes(out[pos:pos + 3], "little")
+        kind, size = (h >> 1) & 3, h >> 3
+        if kind == 3:
+            raise ValueError("reserved zstd block type")
+        if size > ZSTD_BLOCK_MAX:
+            raise ValueError("zstd block over the maximum")
+        pos += 3 + (1 if kind == 1 else size)
+        most += ZSTD_BLOCK_MAX if kind == 2 else size
+        if pos > len(out):
+            raise ValueError("zstd block past the end")
+        if h & 1:
+            return pos, most
+
+
+def check_zstd_frames(out: bytes, data: bytes) -> Dict[str, int]:
+    """Counts for one answer of zstd frames (skippable frames stepped
+    over): each frame is walked here and decoded by stock libzstd; their
+    contents, joined, have to be the request's input. A frame that
+    libzstd refuses but whose header gives its content size is passed
+    over by that size, so the frames after it are still held to their
+    place; where a header or block cannot be walked, or a refused frame
+    gives no size, the rest of the answer goes unread."""
+    lib = libzstd()
+    c = zero_counts()
+    pos = done = 0
+    content_ok = True
+    while pos < len(out):
+        if (len(out) - pos >= 8 and struct.unpack_from("<I", out, pos)[0]
+                & 0xFFFFFFF0 == ZSTD_SKIPPABLE):
+            pos += 8 + struct.unpack_from("<I", out, pos + 4)[0]
+            if pos > len(out):
+                c["frame_errors"] += 1
+                return c
+            continue
+        try:
+            body, fcs, has_sum = zstd_frame_header(out, pos)
+            end, most = zstd_blocks(out, body)
+        except ValueError:
+            c["frame_errors"] += 1            # bytes after the last frame too
+            return c
+        end += 4 if has_sum else 0
+        if end > len(out):
+            c["frame_errors"] += 1
+            return c
+        # the content this frame may give, up to a block past the input
+        cap = min(most, max(0, len(data) - done) + ZSTD_BLOCK_MAX)
+        buf = ctypes.create_string_buffer(max(cap, 1))
+        r = lib.ZSTD_decompress(buf, cap, out[pos:end], end - pos)
+        if lib.ZSTD_isError(r):
+            if lib.ZSTD_getErrorCode(r) == ZSTD_CHECKSUM_WRONG:
+                c["checksum_errors"] += 1
+            else:
+                c["frame_errors"] += 1
+            if fcs is None:
+                return c
+            done += fcs
+        else:
+            got = ctypes.string_at(buf, r)
+            c["frame_errors"] += fcs is not None and fcs != r
+            c["expanded_chunks"] += end - pos > zstd_bound(r)
+            content_ok = content_ok and got == data[done:done + r]
+            done += r
+        pos = end
+    c["content_errors"] += not (content_ok and done == len(data))
+    return c
+
+
+# ---------------------------------------------------------------------------
 # judging a run's answers
 # ---------------------------------------------------------------------------
 
@@ -380,9 +524,9 @@ def judge(fmt: str, hw: int, answers: Sequence[Tuple[object, bytes, bytes]],
     """Judge every answer: (key of its input, input, output). Answers to
     one input that are byte for byte equal share one check; each other
     output is checked on its own. Returns the counts summed over the
-    answers and whether each answer is wrong. ``fmt`` is ``"gzip_ext"``
-    or ``"lz4_frame"``; ``workers`` > 1 runs large LZ4 checks in that
-    many processes."""
+    answers and whether each answer is wrong. ``fmt`` is ``"gzip_ext"``,
+    ``"lz4_frame"`` or ``"zstd_frames"``; ``workers`` > 1 runs large LZ4
+    checks in that many processes."""
     units: List[Tuple[bytes, bytes]] = []
     seen: Dict[object, List[int]] = {}
     unit_of = []
@@ -397,6 +541,8 @@ def judge(fmt: str, hw: int, answers: Sequence[Tuple[object, bytes, bytes]],
         unit_of.append(u)
     if fmt == "gzip_ext":
         verdicts = [check_gzip_ext(out, data, hw) for data, out in units]
+    elif fmt == "zstd_frames":
+        verdicts = [check_zstd_frames(out, data) for data, out in units]
     elif fmt == "lz4_frame":
         jobs = [Lz4Job(out, data, hw) for data, out in units]
         big = sum(len(d) for d, _ in units) >= PARALLEL_BYTES

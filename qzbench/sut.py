@@ -9,9 +9,10 @@ from typing import Dict
 
 def make_session(cfg: Dict, device):
     """A ``QzSession`` on ``device``, set up with the configuration's
-    session parameters (``setup_deflate`` or ``setup_lz4``), built from
-    the file alone and not from the program's defaults or settings
-    files."""
+    session parameters (``setup_deflate``, ``setup_lz4``, or
+    ``setup_lz4s`` with the post-process that ``post_process`` names),
+    built from the file alone and not from the program's defaults or
+    settings files."""
     import qatzip_tpu_torch as qz
     from qatzip_tpu_torch import params as P
     from qatzip_tpu_torch.constants import DataFormat, HuffmanHdr
@@ -26,6 +27,12 @@ def make_session(cfg: Dict, device):
             data_fmt=DataFormat[s["data_fmt"]]))
     elif cfg["algorithm"] == "lz4":
         rc = sess.setup_lz4(P.SessionParamsLZ4(common=common))
+    elif cfg["algorithm"] == "lz4s":
+        from qatzip_tpu_torch import postproc
+        rc = sess.setup_lz4s(P.SessionParamsLZ4S(
+            common=common, lz4s_mini_match=s["lz4s_mini_match"],
+            qzCallback=postproc.zstd_callback,
+            callback_external=post_process(cfg)))
     else:
         raise ValueError(f"unknown algorithm {cfg['algorithm']!r}")
     if rc != 0:
@@ -33,13 +40,32 @@ def make_session(cfg: Dict, device):
     return sess
 
 
+def post_process(cfg: Dict) -> Dict:
+    """The ``callback_external`` of the post-process that an ``lz4s``
+    configuration's ``post_process`` names: ``{"kind": "zstd", "level":
+    n}`` is qzstd's ``zstdCallBack``, one zstd frame a block at zstd
+    level ``n``. A bare LZ4s block stream is only a post-process's
+    input, which no reader judges, so a configuration without one is
+    refused."""
+    pp = cfg.get("post_process")
+    if not isinstance(pp, dict) or pp.get("kind") != "zstd":
+        raise ValueError("an lz4s configuration needs a post_process "
+                         "({\"kind\": \"zstd\", \"level\": n}): a bare LZ4s "
+                         "block stream is only a post-process's input")
+    return {"level": int(pp["level"])}
+
+
 def reference_format(cfg: Dict) -> str:
     """The reference's reader for the configuration's output."""
     if cfg["algorithm"] == "lz4":
         return "lz4_frame"
+    if cfg["algorithm"] == "lz4s":
+        post_process(cfg)
+        return "zstd_frames"
     if cfg["session"].get("data_fmt") == "DEFLATE_GZIP_EXT":
         return "gzip_ext"
-    raise ValueError("the reference reads gzip-ext and LZ4 frames only")
+    raise ValueError("the reference reads gzip-ext, LZ4 and zstd frames "
+                     "only")
 
 
 def engine_counts() -> Dict[str, int]:

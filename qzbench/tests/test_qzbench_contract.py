@@ -177,6 +177,14 @@ def _copy(tmp_path):
             if os.path.isfile(p)}
 
 
+def _reports(bench, cell, metric="compress_gbps"):
+    """Add ``cell`` to the cells that report the end-to-end ``metric``, as
+    a new cell that reports it does: the entry's ``workloads`` grows."""
+    m = next(e for e in bench["end_to_end"] if e["name"] == metric)
+    if "workloads" in m:
+        m["workloads"].append(cell)
+
+
 def _run_in_copy(tmp_path, bench, cell, metric, seconds=0.5):
     """Run ``cell`` of the copy on the CPU; (its line's ``metric``, its
     ``attempted``)."""
@@ -218,11 +226,41 @@ def test_a_new_config_cell_and_metric_are_files_and_entries(tmp_path):
     bench["workloads"].append({"name": "deflate_l1_32k.tiny",
                                "config": "deflate_l1_32k", "traffic": "tiny",
                                "chips": 1, "why": "x"})
+    _reports(bench, "deflate_l1_32k.tiny")
     bench["per_layer"].append({"name": "requests_seen.tiny", "unit": "req",
                                "better": "higher", "source": "host_clock",
                                "layer": "x", "moves": "compress_gbps",
                                "workloads": ["deflate_l1_32k.tiny"]})
     seen, _ = _run_in_copy(tmp_path, bench, "deflate_l1_32k.tiny",
+                           "requests_seen.tiny")
+    assert seen >= 1
+    for p, data in before.items():
+        assert open(p, "rb").read() == data, p
+
+
+def test_an_lz4s_zstd_config_and_cell_are_files_and_entries(tmp_path):
+    """In a copy, qzstd's configuration (an LZ4s session with the zstd
+    post-process, judged by the zstd reader) with a traffic mix, a cell
+    and a per-layer metric added as files and entries runs correct with
+    no file of the copy edited."""
+    before = _copy(tmp_path)
+    bench = json.loads(json.dumps(BENCH))
+    (tmp_path / "qzbench/traffic/tiny.json").write_text(json.dumps(
+        {"generator": "closed", "clients": 1, "request_bytes": 196608,
+         "buffers": 2, "buffer_bytes": 196608, "order": "round_robin"}))
+    (tmp_path / "qzbench/metrics/requests_seen.py").write_text(NEW_METRIC)
+    bench["configs"].append({"name": "lz4s_zstd", "source": "x",
+                             "file": "qzbench/configs/lz4s_zstd.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "lz4s_zstd.tiny",
+                               "config": "lz4s_zstd", "traffic": "tiny",
+                               "chips": 1, "why": "x"})
+    _reports(bench, "lz4s_zstd.tiny")
+    bench["per_layer"].append({"name": "requests_seen.tiny", "unit": "req",
+                               "better": "higher", "source": "host_clock",
+                               "layer": "x", "moves": "compress_gbps",
+                               "workloads": ["lz4s_zstd.tiny"]})
+    seen, _ = _run_in_copy(tmp_path, bench, "lz4s_zstd.tiny",
                            "requests_seen.tiny")
     assert seen >= 1
     for p, data in before.items():
@@ -279,6 +317,7 @@ def test_a_new_traffic_generator_is_a_file(tmp_path):
     bench["workloads"].append({"name": "deflate_l1.paced4k",
                                "config": "deflate_l1", "traffic": "paced4k",
                                "chips": 1, "why": "x"})
+    _reports(bench, "deflate_l1.paced4k")
     bench["per_layer"].append({"name": "submit_gap_ms.paced", "unit": "ms",
                                "better": "higher", "source": "host_clock",
                                "layer": "x", "moves": "compress_gbps",

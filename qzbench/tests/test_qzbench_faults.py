@@ -6,9 +6,13 @@ input unchanged (the session's compress: an engine that returned its
 LZ4 chunks unchanged would be framed as stored blocks, a valid answer
 that only the ratio sees), half of a request's chunks left out and filled from the
 rest, the exchange between the cards left out (the four-card cell), an
-answer altered where it is produced."""
+answer altered where it is produced. ``lz4s_zstd`` is qzstd's LZ4s
+session with the zstd post-process, a configuration with a file and no
+cell: it runs here under the bulk traffic."""
 
 import dataclasses
+import json
+import os
 import time
 
 import pytest
@@ -18,11 +22,22 @@ from qzbench import control, harness
 #: each cell's request size here; "x4" is the bulk DEFLATE cell over four
 #: devices (the four-card configuration's MeshEngine, on CPU shares)
 SMALL = {"deflate_l1.bulk64m": 262144, "lz4_l1.bulk64m": 262144,
-         "deflate_l1.small64k_t4": 65536, "x4": 524288}
+         "deflate_l1.small64k_t4": 65536, "x4": 524288, "lz4s_zstd": 262144}
+
+
+def config(name):
+    with open(os.path.join(harness.HERE, "configs", f"{name}.json")) as f:
+        return json.load(f)
 
 
 def small_cell(name):
-    cell = harness.load_cell("deflate_l1.bulk64m" if name == "x4" else name)
+    if name == "lz4s_zstd":
+        cell = dataclasses.replace(harness.load_cell("lz4_l1.bulk64m"),
+                                   name="lz4s_zstd.bulk64m",
+                                   config=config("lz4s_zstd"))
+    else:
+        cell = harness.load_cell("deflate_l1.bulk64m" if name == "x4"
+                                 else name)
     r = SMALL[name]
     t = dict(cell.traffic, request_bytes=r, buffer_bytes=4 * r, buffers=1,
              clients=min(2, cell.traffic["clients"]), block=4, group=2)
@@ -70,12 +85,23 @@ def test_a_sound_run_is_correct(cell):
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
+    """The fault is planted when the window opens: set-up's warm-up is
+    sound (an altered LZ4s block that the post-process refuses would
+    otherwise end the run in set-up, with no line at all)."""
     from qatzip_tpu_torch.parallel import dispatch
     orig = dispatch.CudaEngine.compress_rows
+    orig_window = harness._window
+    armed = []
 
     def broken(self, chunks, *a, **kw):
-        return FAULTS[fault](chunks, orig(self, chunks, *a, **kw))
+        got = orig(self, chunks, *a, **kw)
+        return FAULTS[fault](chunks, got) if armed else got
+
+    def window(*a, **kw):
+        armed.append(True)
+        return orig_window(*a, **kw)
     monkeypatch.setattr(dispatch.CudaEngine, "compress_rows", broken)
+    monkeypatch.setattr(harness, "_window", window)
     res, checks = run(cell)
     assert not res["correct"] and res["failed"] >= 1, checks
 
@@ -110,6 +136,37 @@ def test_the_control_is_not_correct(cell):
     assert checks["content_errors"] == checks["frame_errors"] == 0
 
 
+def test_the_control_of_the_zstd_post_process_is_not_correct():
+    """qzstd's frames carry no checksum: the control leaves out the
+    post-process, and its LZ4s blocks are no zstd frame."""
+    res, checks = run("lz4s_zstd", make_session=control.ControlSession)
+    assert not res["correct"] and checks["frame_errors"] >= 1, checks
+
+
+def test_the_controls_lz4s_blocks_are_what_the_post_process_takes():
+    """Every byte of the control but the missing post-process follows the
+    format: the port's post-process turns its blocks into frames that
+    read back."""
+    from qatzip_tpu_torch import postproc
+    from qzbench import corpus, reference
+    data = corpus.silesia_like(3 * 65536 + 300, "ctl")
+    blocks = control.ControlSession(config("lz4s_zstd")).compress(data)
+    frames = postproc.zstd_callback({"level": 1}, data, blocks, 3)
+    c, wrong = reference.judge("zstd_frames", 65536, [(0, data, frames)])
+    assert c == reference.zero_counts() and wrong == [False]
+
+
+def test_an_lz4s_config_without_a_post_process_is_refused():
+    from qzbench import sut
+    cfg = config("lz4s_zstd")
+    assert sut.reference_format(cfg) == "zstd_frames"
+    del cfg["post_process"]
+    with pytest.raises(ValueError, match="post_process"):
+        sut.make_session(cfg, "cpu")
+    with pytest.raises(ValueError, match="post_process"):
+        sut.reference_format(cfg)
+
+
 def _req(nbytes):
     return harness.Request(0, 0, b"\0" * nbytes, b"", 0, 0, 0, 0)
 
@@ -121,14 +178,11 @@ def _req(nbytes):
     ("deflate_l1", (64 << 20) + 1, 1, 5),    # a 1-byte last chunk
     ("deflate_l1_x4", 64 << 20, 4, 4),       # 256 rows a card
     ("deflate_l1_x4", 64 << 10, 4, 1),       # one row on one card
+    ("lz4s_zstd", 64 << 20, 1, 4),
 ])
 def test_route_launches_are_one_a_tile(name, nbytes, cards, want):
-    import json
-    import os
     from qzbench import sut
-    with open(os.path.join(harness.HERE, "configs", f"{name}.json")) as f:
-        cfg = json.load(f)
-    assert sut.route_launches(cfg, nbytes, cards) == want
+    assert sut.route_launches(config(name), nbytes, cards) == want
 
 
 def test_a_request_with_a_tile_routed_away_is_short():
